@@ -92,6 +92,9 @@ class FilterGraph:
         self.mode = mode
         self.batch = batch
         self.device = resolve_device(device)
+        # KFM's dirty-field (UCF) replacement (ref KfmEnableUcf): a FILM
+        # frame whose chosen weave still combs gets bobbed instead
+        self.kfm_ucf = True
         self.decisions = None
         self.frame_costs = None
         self.vfr_plan: VFRPlan | None = None
@@ -123,10 +126,9 @@ class FilterGraph:
             # strict CFR output: the trailing partial cycle (<=4 frames)
             # is dropped rather than emitted at a different rate
             plan_frames = num_frames - (num_frames % 5)
-        # the frame costs turn on KFM's dirty-field (UCF) replacement, the
-        # JAX package's default (ref KfmEnableUcf)
-        self.vfr_plan = build_vfr_plan(self.decisions, plan_frames,
-                                       frame_costs=all_costs)
+        self.vfr_plan = build_vfr_plan(
+            self.decisions, plan_frames,
+            frame_costs=all_costs if self.kfm_ucf else None)
 
     # -- pass 1 + 2: analysis over the full sequence ---------------------------
     def analyze(self, frame_iter, num_frames: int) -> None:

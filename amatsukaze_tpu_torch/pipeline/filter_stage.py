@@ -40,18 +40,25 @@ class FilterStageResult:
     seconds: dict = field(default_factory=dict)
 
 
-# the reference's AMTAnalyzeLogo fade sweep, from which the erase fades come
+# the reference's AMTAnalyzeLogo fade sweep, from which the erase fades come;
+# without an erase the two end points are enough to pick the logo
 FADE_STEPS = 11
+FADE_STEPS_NO_DELOGO = 2
+HEAD_RAMP = 8  # frames of the first chunk of the output pass
 
 
 def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
-                     mode: str, sink, batch: int = 32,
-                     device=None) -> FilterStageResult:
+                     mode: str, sink, batch: int = 32, device=None,
+                     no_delogo: bool = False,
+                     kfm_ucf: bool = True) -> FilterStageResult:
     """Run the filter core over one output file and call `sink((y, u, v))`
     with every output frame (uint8 planes), in order.
 
     logos: candidate LogoData of the service (may be empty); the
-    best-matching one is erased with the matcher's fade curve."""
+    best-matching one is erased with the matcher's fade curve. With
+    `no_delogo` the matcher sweeps only the two end fades and nothing is
+    erased; the selected logo and its fade curve are still returned.
+    `kfm_ucf` is FilterGraph.kfm_ucf."""
     seconds = {}
     t0 = time.perf_counter()
     matcher = None
@@ -62,11 +69,14 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
         matcher = LogoFrameMatcher(ctx, logos, device=device)
         matcher.scan_frames((planes[0] for planes in open_frames()),
                             fmt.width, fmt.height, fmt.frame_rate,
-                            batch=batch, fade_steps=FADE_STEPS)
+                            batch=batch,
+                            fade_steps=(FADE_STEPS_NO_DELOGO if no_delogo
+                                        else FADE_STEPS))
         if matcher.num_frames:
             best = matcher.select_logo()
             fade = matcher.fade_curve()
-            entries.append((logos[best], fade))
+            if not no_delogo:
+                entries.append((logos[best], fade))
     eraser = LogoEraser(ctx, entries, fmt.width, fmt.height, device=device)
     seconds["logo_match"] = time.perf_counter() - t0
 
@@ -78,6 +88,7 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
 
     t0 = time.perf_counter()
     fg = FilterGraph(ctx, mode=mode, batch=batch, device=device)
+    fg.kfm_ucf = kfm_ucf
     if fg.mode in FilterGraph.KFM_FAMILY:
         fg.analyze((planes[0] for planes in filtered_frames()), num_frames)
     spec = fg.output_spec(num_frames, fmt)
@@ -125,9 +136,19 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
             emit(pending)
         pending = outs
 
+    # head ramp: a small first chunk, so that the consumer starts after
+    # HEAD_RAMP frames instead of a full batch. The reference pads that
+    # chunk to the batch size with copies of its last frame before the halo
+    # frame goes on, so that frame's next frame is itself; passing no next
+    # frame gives the same output.
+    ramp = min(HEAD_RAMP, batch)
     for planes in frames_iter:
         buf.append(planes)
-        if len(buf) > batch:  # keep one lookahead frame (yadif halo)
+        if start == 0 and pending is None and ramp < batch \
+                and len(buf) > ramp:
+            flush(buf[:ramp], None)
+            buf = buf[ramp:]
+        elif len(buf) > batch:  # keep one lookahead frame (yadif halo)
             flush(buf[:batch], buf[batch])
             buf = buf[batch:]
     flush(buf, None)

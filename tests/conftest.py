@@ -110,3 +110,9 @@ def ctx():
     from amatsukaze_tpu.utils import AMTContext
 
     return AMTContext(level="error")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: takes minutes on one core; deselect with "
+        "-m 'not slow'")
