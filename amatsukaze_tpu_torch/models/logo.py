@@ -59,13 +59,12 @@ class LogoFrameMatcher:
         self.best_logo = -1
         self.logo_ratio = 0.0
 
-    def _deint_eval(self, params, window: np.ndarray,
+    def _deint_eval(self, params, window: torch.Tensor,
                     fades: torch.Tensor) -> np.ndarray:
-        """DeintY + EvaluateLogo: uint8 windows [B, H, W] x fades [F] ->
-        [B, F]. The window crosses to the device as uint8 and widens there."""
-        w = torch.from_numpy(np.ascontiguousarray(window)).to(self.device)
-        d = ops.batched_deint_y(w.float())
-        return logo_eval.evaluate_logo(params, d, 255.0, fades).cpu().numpy()
+        """DeintY + EvaluateLogo: uint8 windows [B, H, W] on the device x
+        fades [F] -> [B, F]: one kernel launch between upload and download."""
+        return logo_eval.evaluate_logo_u8(params, window, 255.0,
+                                          fades).cpu().numpy()
 
     def scan_frames(self, frames_iter, width, height, fps, batch=32,
                     fade_steps: int = 2):
@@ -88,15 +87,21 @@ class LogoFrameMatcher:
             # runs at the one geometry the kernel is measured at
             batch_np, n_real = pad_tail(pend, batch)
             out = np.empty((n_real, len(self.logos), fade_steps), np.float32)
+            uploaded = {}  # logos that share a window share its upload
             for li, (lg, params) in enumerate(zip(self.logos, self.params)):
                 h = lg.header
                 if h.imgw != width or h.imgh != height:
                     out[:, li, :] = 0.0
                     out[:, li, -1] = -1.0
                     continue
-                window = batch_np[:, h.imgy : h.imgy + h.h,
-                                  h.imgx : h.imgx + h.w]
-                out[:, li] = self._deint_eval(params, window, fades)[:n_real]
+                box = (h.imgy, h.imgx, h.h, h.w)
+                if box not in uploaded:
+                    window = batch_np[:, h.imgy : h.imgy + h.h,
+                                      h.imgx : h.imgx + h.w]
+                    uploaded[box] = torch.from_numpy(
+                        np.ascontiguousarray(window)).to(self.device)
+                out[:, li] = self._deint_eval(params, uploaded[box],
+                                              fades)[:n_real]
             results.append(out)
             pend.clear()
 

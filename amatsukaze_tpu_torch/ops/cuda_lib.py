@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ops/build/`` (git-ignored) and loaded with ``ctypes``. The library name
-carries a digest of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built when a
+carries a digest of the source and the flags (a caller may add some, such
+as a ``-D`` that turns a kernel's instrumentation on), so an edited source
+is rebuilt and a stale library is never loaded. Nothing is built when a
 module is imported: the CPU tests import every module and have no
 ``nvcc``.
 """
@@ -26,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -42,27 +43,30 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra_flags=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join((*NVCC_FLAGS, *extra_flags))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names) -> dict[str, float]:
+def build(names, extra_flags=()) -> dict[str, float]:
     """Compile every named kernel whose library is missing, one nvcc per
     source, all started together. Returns {name: seconds} for the ones
     built; the ptxas register/shared-memory report of each lands in
-    ``build/<name>.log``. Raises with the compiler's output on failure."""
+    ``build/<name>.log`` (``build/<name>.flags.log`` with extra flags).
+    Raises with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = library_path(name)
+        out = library_path(name, extra_flags)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -71,7 +75,8 @@ def build(names) -> dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_text(log)
+        log_name = f"{name}.flags.log" if extra_flags else f"{name}.log"
+        (BUILD_DIR / log_name).write_text(log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
@@ -81,12 +86,13 @@ def build(names) -> dict[str, float]:
     return took
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, extra_flags=()) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
+    key = (name, tuple(extra_flags))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            build([name], extra_flags)
+            lib = ctypes.CDLL(str(library_path(name, extra_flags)))
+            _libs[key] = lib
         return lib

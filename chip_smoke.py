@@ -10,8 +10,11 @@ result line):
    together) and print the ptxas register/shared-memory report;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (and the yadif/field-match kernel also at a width
-   that is no multiple of 16 and on misaligned, row-strided views), and
-   time both beside the bound: CUDA events, the median of several repeats
+   that is no multiple of 16 and on misaligned, row-strided views; the
+   logo kernel through its float32 and its uint8 entry at 2 and 11 fades,
+   on a 50x70 window, a batch of 1 and an empty mask, every masked
+   pixel's value bit-equal to the plain version on the CPU, two runs
+   bit-identical), and time both beside the bound: CUDA events, the median of several repeats
    with min and max, once on one buffer (warm: whatever fits stays in L2)
    and once rotating over buffers that together exceed the 50 MB L2 (cold:
    what a caller sees that has just uploaded the batch);
@@ -23,7 +26,9 @@ result line):
    the same logo, fade curve, cycle decisions, VFR plan and frames. Then
    the yadif mode over the same clip, the same way;
 4. one more kfm_vfr run under torch.profiler: the device busy share and
-   the kernels that take the device time;
+   the kernels that take the device time; then the logo scan pass alone:
+   nothing runs on the device but the copies and one logo_eval launch per
+   batch and logo;
 5. the same stage on a small clip on the CPU and on the card: identical;
 6. the stage over the two seeded clips of utils/synth_clip.py (96x128 and
    1440x1080, 45 frames) on the card against the results recorded from the
@@ -117,9 +122,14 @@ def time_warm_cold(make_fn, buffers: list, iters: int) -> tuple:
     return warm, cold
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             fma: bool = True) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations over
+    the float32 rate: the card's peak counts a fused multiply-add as two,
+    so a kernel whose contract forbids contraction (`fma=False`: every
+    operation rounds on its own) can reach half of it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / (FP32_OPS_PER_S if fma else FP32_OPS_PER_S / 2) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -219,11 +229,162 @@ def assert_kernel_a(ff, x, what: str, erase=None) -> float:
     return worst
 
 
-def check_kernels(dev) -> dict:
-    from amatsukaze_tpu_torch.ops import fused_filter as ff
+def assert_logo_eval(lops, logo_eval, params, raw, fades, what: str) -> float:
+    """Both entries of logo_eval against the plain chain on the card
+    (rtol/atol 1e-5: the masked sum runs in another order, and PyTorch on
+    the card divides by a scalar by multiplying with its reciprocal); every
+    masked pixel's value bit-equal to the plain version's on the CPU, where
+    each operation rounds as the kernel's does; a second run bit-identical.
+    Returns the largest score difference."""
+    deint = lops.batched_deint_y(raw.float())
+    want = lops.batched_evaluate_logo(params, deint, 255.0, fades)
+    m = params.pos.shape[0]
+    worst = 0.0
+    for name, fn, x in (("float32", logo_eval.evaluate_logo, deint),
+                        ("uint8", logo_eval.evaluate_logo_u8, raw)):
+        got = fn(params, x, 255.0, fades)
+        again = fn(params, x, 255.0, fades)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{what} [{name}]: scores {got.shape}")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what} [{name}]: two runs differ")
+        worst = max(worst, (got - want).abs().max().item())
+        values = torch.full((*got.shape, m), float("nan"), device=raw.device)
+        logo_eval.launch_kernel(params, x, 255.0, fades, values=values)
+        torch.cuda.synchronize()
+        cpu = lops.LogoEvalParams(**{
+            k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in vars(params).items()})
+        per_pixel = lops.correlation_values(
+            cpu, lops.blend(cpu, deint.cpu(), 255.0, fades.cpu()))
+        expect = (per_pixel.flatten(-2)[..., cpu.pos.long()] * (cpu.weight > 0))
+        if not torch.equal(values.cpu(), expect):
+            n = (values.cpu() != expect).sum().item()
+            raise AssertionError(f"{what} [{name}]: {n} of {expect.numel()} "
+                                 f"pixel values differ from the plain "
+                                 f"version's bits")
+    return worst
+
+
+def check_logo_eval(dev, frames, res: dict) -> None:
+    """Kernel B (K3: LogoFrameMatcher.scan_frames), both entries."""
+    import dataclasses
+
     from amatsukaze_tpu_torch.ops import logo as lops
     from amatsukaze_tpu_torch.ops import logo_eval
     from amatsukaze_tpu_torch.ops.logo_ref import LogoEvalRef
+    from amatsukaze_tpu_torch.utils.synth_clip import logo_alpha
+
+    def logo_params(h, w):
+        a = logo_alpha(h, w)
+        ref = LogoEvalRef((1.0 / (1.0 - a)).astype(np.float32),
+                          (-a * 200.0 / (1.0 - a) / 255.0).astype(np.float32))
+        return lops.LogoEvalParams.from_ref(ref, dev)
+
+    params = logo_params(LOGO_H, LOGO_W)
+    raw = frames(BATCH, LOGO_H, LOGO_W)
+    odd = logo_params(50, 70)
+    if odd.n_items % 32 == 0:
+        raise AssertionError("the odd window's mask fills whole warps")
+    odd_raw = frames(7, 50, 70)
+    errs = {}
+    for n_fades in (2, 11):
+        fades = torch.linspace(0, 1, n_fades, device=dev)
+        errs[n_fades] = assert_logo_eval(lops, logo_eval, params, raw, fades,
+                                         f"logo_eval F={n_fades}")
+        e1 = assert_logo_eval(lops, logo_eval, params, raw[:1], fades,
+                              f"logo_eval batch 1 F={n_fades}")
+        e2 = assert_logo_eval(lops, logo_eval, odd, odd_raw, fades,
+                              f"logo_eval 7x50x70 F={n_fades}")
+        log(f"check logo_eval F={n_fades}: float32 and uint8 entry against "
+            f"the plain chain at {BATCH}x{LOGO_H}x{LOGO_W} (max abs err "
+            f"{errs[n_fades]:.3g}), 1x{LOGO_H}x{LOGO_W} ({e1:.3g}) and "
+            f"7x50x70 with {odd.n_items} masked pixels ({e2:.3g}), rtol/atol "
+            f"1e-5; every masked pixel's value bit-equal to the plain "
+            f"version on the CPU; two runs bit-identical")
+    # a logo with nothing masked: score 0 and no launch
+    h, w = 20, 36
+    z = np.zeros((h, w), np.float32)
+    empty = lops.LogoEvalParams.from_numpy(
+        dict(a_y=z + 1.0, b_y=z, mask=z, kernels=np.zeros((h, w, 25)),
+             scale=np.zeros((h, w, 32)), scale2=np.zeros((h, w, 32)),
+             black_score=1.0), dev)
+    got = logo_eval.evaluate_logo_u8(empty, frames(3, h, w), 255.0,
+                                     torch.linspace(0, 1, 2, device=dev))
+    torch.cuda.synchronize()
+    if got.shape != (3, 2) or got.abs().max().item() != 0.0:
+        raise AssertionError(f"empty mask: scores {got}")
+    log("check logo_eval with an empty mask: scores 0")
+
+    # timings. One set of operands is what one call reads: 0.9 MB of
+    # compacted tables, A, B and the batch of windows (0.8 MB raw); 64 sets
+    # exceed the L2 twice over
+    near = torch.nn.functional.max_pool2d(params.mask[None, None], 5, 1, 2)
+    n_near = int(near.sum().item())  # pixels that are a tap of a masked one
+    n_mask = params.n_items
+    hw = LOGO_H * LOGO_W
+    compact = ("pos", "weight", "kernels_c", "scale_c", "scale2_c", "a_y",
+               "b_y")
+    sets = []
+    for _ in range(64):
+        ps = dataclasses.replace(
+            params, **{k: getattr(params, k).clone() for k in compact})
+        r = frames(BATCH, LOGO_H, LOGO_W)
+        sets.append((ps, r, lops.batched_deint_y(r.float())))
+    for n_fades in (2, 11):
+        fades = torch.linspace(0, 1, n_fades, device=dev)
+        entries = {
+            "f32": lambda s: lambda: logo_eval.evaluate_logo(
+                s[0], s[2], 255.0, fades),
+            "u8": lambda s: lambda: logo_eval.evaluate_logo_u8(
+                s[0], s[1], 255.0, fades),
+            # what the uint8 entry replaces: widen, DeintY, score
+            "chain": lambda s: lambda: logo_eval.evaluate_logo(
+                s[0], lops.batched_deint_y(s[1].float()), 255.0, fades),
+        }
+        # the chain is ten launches a call: fewer calls per window, so that
+        # the host still enqueues a window while the card spins
+        t = {k: time_warm_cold(fn, sets, 10 if k == "chain" else 50)
+             for k, fn in entries.items()}
+        plain = time_ms(lambda i: lops.batched_deint_evaluate_logo(
+            params, raw, 255.0, fades), 3, repeats=3)
+        # the least any implementation must do: move the windows as the
+        # caller holds them, A, B, the masked pixels' tables and the scores
+        # once; blend the pixels that are taps (3 operations per frame for
+        # the background, 3 per frame and fade) and score the masked ones
+        # (106 per frame and fade), none contracted into an FMA
+        n_ops = BATCH * (3 * n_near + n_fades * (3 * n_near + 106 * n_mask))
+        shared_bytes = 4 * (2 * hw + 91 * n_mask + n_fades + BATCH * n_fades)
+        for key, px_bytes in (("f32", 4), ("u8", 1)):
+            warm, cold = t[key]
+            n_bytes = BATCH * hw * px_bytes + shared_bytes
+            bounds = dict(
+                bound_bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                bound_operations_ms=n_ops / (FP32_OPS_PER_S / 2) * 1e3)
+            name = f"logo_eval_{key}_f{n_fades}"
+            res[name] = row([BATCH, n_fades, LOGO_H, LOGO_W], warm, plain,
+                            bound_ms(n_bytes, n_ops, fma=False),
+                            errs[n_fades], cold_ms=cold["ms"],
+                            cold_min=cold["min"], cold_max=cold["max"],
+                            **bounds)
+            r = res[name]
+            log(f"time {name}: warm {warm} ms, cold {cold} ms; plain chain "
+                f"{plain['ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}: bytes {r['bound_bytes_ms']:.4f}, "
+                f"operations without FMA {r['bound_operations_ms']:.4f}; "
+                f"{n_mask} masked pixels, {n_near} tap pixels)")
+        warm, cold = t["chain"]
+        res[f"logo_eval_u8_f{n_fades}"].update(
+            unfused_chain_ms=warm["ms"], unfused_chain_cold_ms=cold["ms"])
+        log(f"time unfused chain F={n_fades} (float, batched_deint_y, "
+            f"float32 entry): warm {warm} ms, cold {cold} ms; uint8 entry / "
+            f"float32 entry = {t['u8'][0]['ms'] / t['f32'][0]['ms']:.3f} warm")
+
+
+def check_kernels(dev) -> dict:
+    from amatsukaze_tpu_torch.ops import fused_filter as ff
     from amatsukaze_tpu_torch.utils.synth_clip import logo_alpha
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -322,40 +483,7 @@ def check_kernels(dev) -> dict:
     log(f"time erase box mode / yadif+costs: {ratio:.3f}x (kernel alone)")
     del luma, chroma, costs_in, both_in
 
-    # -- kernel B (K3: LogoFrameMatcher.scan_frames) -----------------------
-    a = logo_alpha(LOGO_H, LOGO_W)
-    ref = LogoEvalRef((1.0 / (1.0 - a)).astype(np.float32),
-                      (-a * 200.0 / (1.0 - a) / 255.0).astype(np.float32))
-    hw = LOGO_H * LOGO_W
-    # one logo's tables and one batch of windows are 12 MB: six of each
-    # exceed the L2
-    sets = [(lops.LogoEvalParams.from_ref(ref, dev),
-             lops.batched_deint_y(frames(BATCH, LOGO_H, LOGO_W).float()))
-            for _ in range(6)]
-    params, src = sets[0]
-    n_mask = int(params.mask.sum().item())
-    for n_fades in (2, 11):
-        fades = torch.linspace(0, 1, n_fades, device=dev)
-        got = logo_eval.evaluate_logo(params, src, 255.0, fades)
-        want = lops.batched_evaluate_logo(params, src, 255.0, fades)
-        err = (got - want).abs().max().item()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        warm, cold = time_warm_cold(
-            lambda ps: lambda: logo_eval.evaluate_logo(ps[0], ps[1], 255.0,
-                                                       fades), sets, 50)
-        plain = time_ms(lambda i: lops.batched_evaluate_logo(
-            params, src, 255.0, fades), 3, repeats=3)
-        n_bytes = 4 * (src.numel() + 92 * hw + n_fades + BATCH * n_fades)
-        n_ops = BATCH * n_fades * (6 * hw + 106 * n_mask)
-        res[f"logo_eval_f{n_fades}"] = row(
-            [BATCH, n_fades, LOGO_H, LOGO_W], warm, plain,
-            bound_ms(n_bytes, n_ops), err, cold_ms=cold["ms"],
-            cold_min=cold["min"], cold_max=cold["max"])
-        r = res[f"logo_eval_f{n_fades}"]
-        log(f"check logo_eval B={BATCH} F={n_fades}: max abs err {err:.3g} "
-            f"(rtol/atol 1e-5: sum order); warm {warm} ms, cold {cold} ms, "
-            f"plain {plain['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+    check_logo_eval(dev, frames, res)
     return res
 
 
@@ -408,7 +536,9 @@ def plain_versions():
     with mock.patch.object(fused_filter, "yadif_fieldmatch",
                            fused_filter.yadif_fieldmatch_plain), \
             mock.patch.object(logo_eval, "evaluate_logo",
-                              logo.batched_evaluate_logo):
+                              logo.batched_evaluate_logo), \
+            mock.patch.object(logo_eval, "evaluate_logo_u8",
+                              logo.batched_deint_evaluate_logo):
         yield
 
 
@@ -533,6 +663,44 @@ def profile_stage(dev, clip, fmt, logos) -> dict:
     return out
 
 
+def profile_scan_pass(dev, clip, fmt, logos) -> None:
+    """Every device activity of the logo scan pass alone
+    (LogoFrameMatcher.scan_frames at 11 fades), by name: one scoring call
+    must be the upload, one logo_eval launch per logo and the download,
+    with no elementwise, sum or div kernel between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from amatsukaze_tpu_torch.models.logo import LogoFrameMatcher
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    matcher = LogoFrameMatcher(AMTContext(level="warn"), logos, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        matcher.scan_frames((planes[0] for planes in clip), fmt.width,
+                            fmt.height, fmt.frame_rate, batch=BATCH,
+                            fade_steps=11)
+        torch.cuda.synchronize()
+    acts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not sum(e.self_device_time_total for e in acts):
+        log("profile scan pass: no device time recorded (not measured)")
+        return
+    for e in sorted(acts, key=lambda e: -e.self_device_time_total):
+        log(f"profile scan pass {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:90]}")
+    others = [e.key for e in acts
+              if "logo_eval" not in e.key and "memcpy" not in e.key.lower()]
+    if others:
+        raise AssertionError(f"the scan pass ran device kernels besides "
+                             f"logo_eval and the copies: {others}")
+    n_batches = -(-len(clip) // BATCH)
+    launches = sum(e.count for e in acts if "logo_eval" in e.key)
+    if launches != n_batches * len(logos):
+        raise AssertionError(f"scan pass: {launches} logo_eval launches for "
+                             f"{n_batches} batches x {len(logos)} logos")
+
+
 def small_reference(dev) -> None:
     """The stage on a small clip on the CPU (plain versions) and on the
     card (kernels): identical results."""
@@ -612,6 +780,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     profile_stage(dev, clip, fmt, logos)
+    profile_scan_pass(dev, clip, fmt, logos)
     log(f"phase profile: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -632,7 +801,8 @@ def main() -> int:
          main["kfm_vfr"]["launches"].get("costs", 0), checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
-         + main["yadif"]["launches"]["logo_eval"], checks["logo_eval_f11"]),
+         + main["yadif"]["launches"]["logo_eval"],
+         checks["logo_eval_u8_f11"]),
     ]
     kernels = []
     for n, src, rep, launches, c in rows:

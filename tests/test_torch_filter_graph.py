@@ -19,7 +19,9 @@ from amatsukaze_tpu.types import VideoFormat as JVideoFormat
 from amatsukaze_tpu.utils.context import AMTContext as JContext
 from amatsukaze_tpu_torch import convert
 from amatsukaze_tpu_torch.models.filter_graph import FilterGraph, normalize_u8
+from amatsukaze_tpu_torch.models.logo import LogoFrameMatcher
 from amatsukaze_tpu_torch.models.logo_erase import LogoEraser
+from amatsukaze_tpu_torch.ops import logo_eval
 from amatsukaze_tpu_torch.pipeline.filter_stage import run_filter_stage
 from amatsukaze_tpu_torch.types import VideoFormat
 from amatsukaze_tpu_torch.utils.context import AMTContext
@@ -266,3 +268,64 @@ def test_cuda_request_without_card_raises():
         pytest.skip("a CUDA card is present: the request is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FilterGraph(AMTContext(), mode="yadif")
+
+
+def _matcher_candidates():
+    """The clip's logo and its decoy (one window), a candidate with another
+    window, and one made for another frame size."""
+    logos = _jax_logos()
+    other = JLogoData.create(JLogoHeader(20, 12, 1, 1, W, H, 40, 20, "L2", 2))
+    other.a_y, other.b_y = _ab(_alpha(12, 20), 180.0)
+    foreign = JLogoData.create(
+        JLogoHeader(LW, LH, 1, 1, 2 * W, 2 * H, LX, LY, "L3", 3))
+    foreign.a_y, foreign.b_y = _ab(_alpha(LH, LW), 200.0)
+    return logos + [other, foreign]
+
+
+@pytest.mark.parametrize("fade_steps", [2, 11])
+def test_matcher_scan_matches_jax(clip, fade_steps, monkeypatch):
+    """LogoFrameMatcher.scan_frames, one scoring call per logo and batch on
+    the raw uint8 window: the scores of every frame, logo and fade, the
+    selected logo, the intervals and the fade curve equal the JAX
+    matcher's (scores and fades within 1e-5: another order of the sums)."""
+    monkeypatch.setattr(jlogo_model, "_HOST_OPS", False)  # device path
+    jlogos = _matcher_candidates()
+    jm = jlogo_model.LogoFrameMatcher(JContext(level="error"), jlogos)
+    jm.scan_frames((f[0] for f in clip), W, H, FPS, batch=BATCH,
+                   fade_steps=fade_steps)
+    tm = LogoFrameMatcher(AMTContext(level="error"),
+                          [convert.logo_data_from_numpy(lg) for lg in jlogos],
+                          device="cpu")
+    calls = []
+    scored = logo_eval.evaluate_logo_u8
+
+    def counted(params, window, maxv, fades):
+        assert window.dtype == torch.uint8 and window.is_contiguous()
+        calls.append((tuple(window.shape), id(window)))
+        return scored(params, window, maxv, fades)
+
+    monkeypatch.setattr(logo_eval, "evaluate_logo_u8", counted)
+    tm.scan_frames((f[0] for f in clip), W, H, FPS, batch=BATCH,
+                   fade_steps=fade_steps)
+    n_batches = -(-len(clip) // BATCH)
+    assert [c[0] for c in calls] == [(BATCH, LH, LW), (BATCH, LH, LW),
+                                     (BATCH, 12, 20)] * n_batches
+    # the two logos of one window share its upload
+    assert all(calls[3 * k][1] == calls[3 * k + 1][1] != calls[3 * k + 2][1]
+               for k in range(n_batches))
+    assert tm.eval_results.shape == jm.eval_results.shape == (
+        len(clip), 4, fade_steps)
+    np.testing.assert_allclose(tm.eval_results, jm.eval_results,
+                               rtol=1e-5, atol=1e-5)
+    # made for another frame size: never scored
+    want = np.zeros(fade_steps, np.float32)
+    want[-1] = -1.0
+    assert (tm.eval_results[:, 3] == want).all()
+    assert tm.select_logo() == jm.select_logo() == 0
+    assert tm.logo_ratio == jm.logo_ratio
+    assert tm.intervals() == [
+        type(tm.intervals()[0])(**vars(iv)) for iv in jm.intervals()]
+    np.testing.assert_allclose(tm.fade_curve(), jm.fade_curve(), atol=1e-5)
+    for li in (1, 2):
+        np.testing.assert_allclose(tm.fade_curve(li), jm.fade_curve(li),
+                                   atol=1e-5)
