@@ -29,6 +29,7 @@ import torch
 from ..ops import deint as deint_ops
 from ..ops import fused_filter
 from ..types import VideoFormat
+from ..utils.batching import batched
 from ..utils.device import resolve_device
 from .kfm import CycleMode, KFMDecider, VFRPlan, build_vfr_plan, plan_is_cfr
 from .vfr import EncoderZone, infer_vfr_timing_fps
@@ -99,6 +100,34 @@ class FilterGraph:
         self.frame_costs = None
         self.vfr_plan: VFRPlan | None = None
 
+    def debug_dump(self, num_frames: int) -> dict:
+        """JSON-able description of the configured graph and its analysis
+        decisions (the reference's --dump-filter AviSynth graph analog).
+        The keys are the JAX package's; the port has no post chain and no
+        QP maps yet, so theirs hold False and 0."""
+        out = {
+            "mode": self.mode,
+            "batch": self.batch,
+            "num_source_frames": num_frames,
+            "post_chain": False,
+            "post_chain_wants_qp": False,
+            "qp_source_frames": 0,
+        }
+        if self.decisions is not None:
+            modes = [int(d.mode) for d in self.decisions]
+            out["kfm_cycles"] = len(modes)
+            out["kfm_mode_histogram"] = {
+                str(m): modes.count(m) for m in sorted(set(modes))}
+            out["kfm_decisions"] = [
+                {"mode": int(d.mode), "phase": int(d.phase)}
+                for d in self.decisions[:2000]]
+        if self.vfr_plan is not None:
+            out["vfr_out_frames"] = len(self.vfr_plan.durations)
+            out["vfr_duration_histogram"] = {
+                str(d): self.vfr_plan.durations.count(d)
+                for d in sorted(set(self.vfr_plan.durations))}
+        return out
+
     def _make_decider(self) -> KFMDecider:
         decider = KFMDecider()
         if self.mode == self.MODE_KFM_VFR30:
@@ -139,7 +168,7 @@ class FilterGraph:
             return
         costs = []
         carry = None  # last frame of the previous batch for cross-batch match
-        for chunk in _batched(frame_iter, self.batch):
+        for chunk in batched(frame_iter, self.batch):
             arr = torch.from_numpy(normalize_u8(np.stack(chunk))).to(
                 self.device)
             arr_in = arr if carry is None else torch.cat([carry[None], arr])
@@ -273,17 +302,6 @@ def bob_field(frames: torch.Tensor, top: bool) -> torch.Tensor:
     # missing (even) line k sits between kept k-1 and k
     prv = torch.cat([fld[:, :1], fld[:, :-1]], dim=1)
     return deint_ops.weave((prv + fld) * 0.5, fld)
-
-
-def _batched(it, n):
-    chunk = []
-    for x in it:
-        chunk.append(x)
-        if len(chunk) >= n:
-            yield chunk
-            chunk = []
-    if chunk:
-        yield chunk
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import torch
 from ..ops import logo as ops
 from ..ops import logo_eval
 from ..ops.logo_ref import LogoEvalRef
-from ..utils.batching import pad_tail
+from ..utils.batching import batched, pad_tail
 from ..utils.device import resolve_device
 from .lgd import LogoData
 
@@ -59,63 +59,109 @@ class LogoFrameMatcher:
         self.best_logo = -1
         self.logo_ratio = 0.0
 
-    def _deint_eval(self, params, window: torch.Tensor,
-                    fades: torch.Tensor) -> np.ndarray:
-        """DeintY + EvaluateLogo: uint8 windows [B, H, W] on the device x
-        fades [F] -> [B, F]: one kernel launch between upload and download."""
-        return logo_eval.evaluate_logo_u8(params, window, 255.0,
-                                          fades).cpu().numpy()
+    def begin_scan(self, width: int, height: int, fps,
+                   fade_steps: int = 2) -> None:
+        """Start a scan of frames of `width` x `height`, scored at
+        `fade_steps` fade levels spanning [0, 1] (2 = the matcher's on/off
+        pair; 11 = the reference's AMTAnalyzeLogo sweep used to derive
+        per-frame erase fades). Feed batches to scan_batch, then call
+        end_scan."""
+        self.fps = int(round(fps))
+        self.fade_steps = fade_steps
+        self._size = (width, height)
+        self._fades = torch.from_numpy(
+            np.linspace(0.0, 1.0, fade_steps).astype(np.float32)
+        ).to(self.device)
+        self._results = []
+        self._pending = None
+
+    def _fits(self, logo: LogoData) -> bool:
+        return (logo.header.imgw, logo.header.imgh) == self._size
+
+    def window_region(self):
+        """(y0, x0, y1, x1): the smallest box of the frame that holds the
+        window of every logo made for the scanned frame size; None when no
+        logo is."""
+        boxes = [(h.imgy, h.imgx, h.imgy + h.h, h.imgx + h.w)
+                 for h in (lg.header for lg in self.logos if self._fits(lg))]
+        if not boxes:
+            return None
+        y0, x0, y1, x1 = zip(*boxes)
+        return min(y0), min(x0), max(y1), max(x1)
+
+    def upload_windows(self, batch_np: np.ndarray):
+        """(uint8 tensor on the device, origin): the window_region of a
+        host batch [B, H, W], the only bytes the scores need; (None, None)
+        when no logo fits the frame."""
+        region = self.window_region()
+        if region is None:
+            return None, None
+        y0, x0, y1, x1 = region
+        window = np.ascontiguousarray(batch_np[:, y0:y1, x0:x1])
+        return torch.from_numpy(window).to(self.device), (y0, x0)
+
+    def scan_batch(self, luma: torch.Tensor | None, n_real: int,
+                   origin=(0, 0)) -> None:
+        """Score one batch already on the device: luma [B, h, w] uint8, the
+        region of the frames whose top-left corner is `origin` (the whole
+        frame by default). Each logo's window is sliced on the device
+        (logos that share a window share its slice); one logo_eval launch
+        per logo. Only the first `n_real` frames are kept (a tail batch is
+        padded to the steady shape). Batch k's scores come down after batch
+        k+1's launches are enqueued; end_scan fetches the last."""
+        scores = []
+        windows = {}
+        for lg, params in zip(self.logos, self.params):
+            if not self._fits(lg):
+                scores.append(None)
+                continue
+            h = lg.header
+            box = (h.imgy, h.imgx, h.h, h.w)
+            if box not in windows:
+                y, x = h.imgy - origin[0], h.imgx - origin[1]
+                windows[box] = luma[:, y : y + h.h, x : x + h.w].contiguous()
+            scores.append(logo_eval.evaluate_logo_u8(params, windows[box],
+                                                     255.0, self._fades))
+        self._fetch_pending()
+        self._pending = (scores, n_real)
+
+    def _fetch_pending(self) -> None:
+        if self._pending is None:
+            return
+        scores, n_real = self._pending
+        self._pending = None
+        out = np.empty((n_real, len(self.logos), self.fade_steps), np.float32)
+        for li, s in enumerate(scores):
+            if s is None:  # a logo for another frame size never matches
+                out[:, li, :] = 0.0
+                out[:, li, -1] = -1.0
+            else:
+                out[:, li] = s[:n_real].cpu().numpy()
+        self._results.append(out)
+
+    def end_scan(self) -> None:
+        self._fetch_pending()
+        self.eval_results = (
+            np.concatenate(self._results)
+            if self._results
+            else np.empty((0, len(self.logos), self.fade_steps), np.float32)
+        )
+        self.num_frames = len(self.eval_results)
+        self._results = []
 
     def scan_frames(self, frames_iter, width, height, fps, batch=32,
                     fade_steps: int = 2):
         """frames_iter yields full Y planes (uint8). Evaluates every frame
-        against every valid logo at `fade_steps` fade levels spanning [0, 1]
-        (2 = the matcher's on/off pair; 11 = the reference's AMTAnalyzeLogo
-        sweep used to derive per-frame erase fades)."""
-        self.fps = int(round(fps))
-        self.fade_steps = fade_steps
-        fades = torch.from_numpy(
-            np.linspace(0.0, 1.0, fade_steps).astype(np.float32)
-        ).to(self.device)
-        results = []
-        pend = []
-
-        def flush():
-            if not pend:
-                return
+        against every valid logo at `fade_steps` fade levels (begin_scan);
+        per batch only the logos' windows cross to the device."""
+        self.begin_scan(width, height, fps, fade_steps)
+        for chunk in batched(frames_iter, batch):
             # pad the tail to the steady batch shape: every launch then
             # runs at the one geometry the kernel is measured at
-            batch_np, n_real = pad_tail(pend, batch)
-            out = np.empty((n_real, len(self.logos), fade_steps), np.float32)
-            uploaded = {}  # logos that share a window share its upload
-            for li, (lg, params) in enumerate(zip(self.logos, self.params)):
-                h = lg.header
-                if h.imgw != width or h.imgh != height:
-                    out[:, li, :] = 0.0
-                    out[:, li, -1] = -1.0
-                    continue
-                box = (h.imgy, h.imgx, h.h, h.w)
-                if box not in uploaded:
-                    window = batch_np[:, h.imgy : h.imgy + h.h,
-                                      h.imgx : h.imgx + h.w]
-                    uploaded[box] = torch.from_numpy(
-                        np.ascontiguousarray(window)).to(self.device)
-                out[:, li] = self._deint_eval(params, uploaded[box],
-                                              fades)[:n_real]
-            results.append(out)
-            pend.clear()
-
-        for y in frames_iter:
-            pend.append(y)
-            if len(pend) >= batch:
-                flush()
-        flush()
-        self.eval_results = (
-            np.concatenate(results)
-            if results
-            else np.empty((0, len(self.logos), fade_steps), np.float32)
-        )
-        self.num_frames = len(self.eval_results)
+            arr, n_real = pad_tail(chunk, batch)
+            luma, origin = self.upload_windows(arr)
+            self.scan_batch(luma, n_real, origin)
+        self.end_scan()
 
     def select_logo(self, num_candidates: int = -1) -> int:
         """Pick the best logo by erase-residual score (ref :1647-1682)."""

@@ -2,22 +2,13 @@
 
 Counterpart of amatsukaze_tpu/models/vfr.py, cut to what the filter core
 uses (parity: Amatsukaze/FilteredSource.hpp:163-212). The bitrate-zone
-machinery waits with the encoder layers; EncoderZone lives here instead of
-in a copy of cm_analyze.
+machinery waits with the encoder layers. EncoderZone is cm_analyze's, as
+in the JAX package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
-
-@dataclass
-class EncoderZone:
-    """A frame range [start_frame, end_frame) with its own encoder setting
-    (the CM zones of amatsukaze_tpu/models/cm_analyze.py)."""
-
-    start_frame: int
-    end_frame: int
+from .cm_analyze import EncoderZone  # noqa: F401  (models.vfr.EncoderZone)
 
 
 def infer_vfr_timing_fps(timecodes: list[float], default: int = 60) -> int:

@@ -1,0 +1,243 @@
+"""The CM analysis pass of one video file: scene metrics and logo scores
+from one streaming pass over the decoded luma, silence from the PCM, the CM
+decision and the JLS elements of the chapters.
+
+Counterpart of the in-process path of TranscodePipeline._analyze_video_file
+(amatsukaze_tpu/pipeline/transcode.py:383-616), _detect_silence (:691-720)
+and _jls_elements (:793-805), without the stream-reform layer and the
+external chapter_exe/join_logo_scp tools:
+
+    cm = run_cm_analysis(ctx, open_frames, num_frames, fmt, logos,
+                         pcm_s16=pcm)
+    cm.result.trims, cm.result.cmzones, cm.jls_elements
+
+Each batch of luma frames crosses to the device once, as uint8: the scene
+metrics run on it (with the previous batch's last frame as the carry) and
+the logo matcher slices its windows from the same tensor. Batch k's results
+come down only after batch k+1's work is enqueued. The decisions are the
+JAX package's host code (models/cm_analyze.py, jls_script.py, chapter.py).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..models.chapter import JlsElement, format_jls
+from ..models.cm_analyze import (CMAnalyzer, CMAnalyzeResult,
+                                 format_scene_changes_text, format_trim_avs)
+from ..models.filter_graph import normalize_u8
+from ..models.logo import LogoFrameMatcher
+from ..ops import cm as cm_ops
+from ..utils.batching import batched, pad_tail
+from ..utils.device import resolve_device
+
+# the reference's AMTAnalyzeLogo fade sweep, from which the erase fades come;
+# without an erase the two end points are enough to pick the logo
+FADE_STEPS = 11
+FADE_STEPS_NO_DELOGO = 2
+# silence: 10 ms windows of the interleaved stereo 48 kHz PCM whose RMS is
+# under 1% of full scale, at least 0.3 s long (transcode.py:710-717)
+PCM_RATE = 48000
+SILENCE_THRESHOLD = 0.01
+SILENCE_MIN_WINDOWS = 30
+# the files written with `out_dir` (the reference's file contracts, named
+# as its temp files are, without the video index)
+FILES = dict(scpos="chapter_exe_o.txt", logo_frames="logof.txt",
+             trim="trim.avs", div="div.txt", jls="jls.txt")
+
+
+@dataclass
+class CMStageResult:
+    matcher: LogoFrameMatcher | None
+    best_logo: int  # -1 without logos
+    fade: np.ndarray | None  # per-frame erase fade; None under no_delogo
+    scene_changes: list
+    silence: list  # [start, end) frame spans
+    logo_spans: list | None  # logo-on [start, end) frame spans
+    result: CMAnalyzeResult  # trims, divs, cmzones, scene_changes, logopath
+    jls_elements: list
+    num_frames: int = 0  # frames the pass saw
+    # wall seconds: "stream" (the luma pass, ending in its last fetch),
+    # "silence", "decision"
+    seconds: dict = field(default_factory=dict)
+
+
+def luma_pass(ys, num_frames: int, batch: int, device,
+              matcher: LogoFrameMatcher | None = None,
+              scene_metrics: bool = True):
+    """One streaming pass over at most `num_frames` luma planes (uint8, or
+    what normalize_u8 takes), in batches of `batch` (the tail padded to the
+    steady shape). With scene metrics each batch crosses to the device
+    whole, once; without, only the matcher's window region does. The
+    matcher (begun by the caller, ended after this) scores the same device
+    tensor. Returns (frames seen, diffs [N] float32, histograms [N, 32]
+    float32); the two arrays are None without scene metrics."""
+    device = resolve_device(device)
+    diffs, hists = [], []
+    pending = None  # the previous batch's metrics, still on the device
+    carry = None  # the previous batch's last frame, on the device
+    count = 0
+
+    def fetch():
+        nonlocal pending
+        if pending is not None:
+            d, h, n_real = pending
+            pending = None
+            diffs.append(d[:n_real].cpu().numpy())
+            hists.append(h[:n_real].cpu().numpy())
+
+    def frames():
+        nonlocal count
+        it = iter(ys)
+        while count < num_frames:
+            y = next(it, None)
+            if y is None:
+                return
+            count += 1
+            yield normalize_u8(y)
+
+    for chunk in batched(frames(), batch):
+        arr, n_real = pad_tail(chunk, batch)
+        if scene_metrics:
+            luma, origin = torch.from_numpy(arr).to(device), (0, 0)
+            d, h = cm_ops.scene_metrics_batch(
+                luma, luma[0] if carry is None else carry)
+            carry = luma[n_real - 1]
+        else:
+            luma, origin = matcher.upload_windows(arr)
+        if matcher is not None:
+            matcher.scan_batch(luma, n_real, origin)
+        fetch()
+        if scene_metrics:
+            pending = (d, h, n_real)
+    fetch()
+    if not scene_metrics:
+        return count, None, None
+    if not diffs:
+        return count, np.zeros(0, np.float32), np.zeros((0, cm_ops.BINS),
+                                                        np.float32)
+    return count, np.concatenate(diffs), np.concatenate(hists)
+
+
+def detect_silence(pcm_s16, fps: float, device) -> list[tuple[int, int]]:
+    """Silent spans in frames of interleaved stereo 48 kHz int16 PCM
+    (transcode.py:691-720): RMS of 10 ms windows on the device, the
+    run-length pass on the host, window units to frames by fps / 100."""
+    if pcm_s16 is None or len(pcm_s16) == 0:
+        return []
+    pcm = np.asarray(pcm_s16, np.int16).astype(np.float32) / 32768.0
+    window = PCM_RATE * 2 // 100
+    usable = len(pcm) // window * window
+    if usable == 0:
+        return []
+    rms = cm_ops.audio_rms_windows(
+        torch.from_numpy(pcm[:usable]).to(resolve_device(device)), window)
+    spans = cm_ops.detect_silence(rms.cpu().numpy(), SILENCE_THRESHOLD,
+                                  SILENCE_MIN_WINDOWS)
+    to_frames = fps / 100.0
+    return [(int(s * to_frames), int(e * to_frames)) for s, e in spans]
+
+
+def jls_elements(result: CMAnalyzeResult, num_frames: int,
+                 fps: float) -> list[JlsElement]:
+    """The spans between trims and divs, in whole seconds
+    (transcode.py:793-805)."""
+    bounds = sorted(set([0, num_frames] + result.trims + result.divs))
+    return [JlsElement(a, b, int(round((b - a) / fps)))
+            for a, b in zip(bounds, bounds[1:]) if b > a]
+
+
+def run_cm_analysis(ctx, open_frames, num_frames: int, fmt, logos: list,
+                    pcm_s16=None, jls_script=None, jls_options=None,
+                    loose_logo_detection: bool = False,
+                    no_delogo: bool = False, pid_changes=None,
+                    pmt_cut_side_rate=(0, 0), batch: int = 32, device=None,
+                    out_dir: str | None = None) -> CMStageResult:
+    """CM analysis of one video file.
+
+    open_frames() returns an iterator of (Y, U, V) planes; only Y is read.
+    logos: candidate LogoData (may be empty); the result names the chosen
+    one by its header name. pcm_s16: the file's audio, interleaved stereo
+    48 kHz int16, or None. jls_script: a models.jls_script.JlsScript that
+    drives the decision in place of JlsDecider. pid_changes: the frames
+    where the PMT changed, for apply_pmt_cut when a pmt_cut_side_rate is
+    > 0. With `out_dir`, the scene-change, logo-frame, trim, div and JLS
+    files are written there (FILES)."""
+    device = resolve_device(device)
+    fps = fmt.frame_rate if fmt.frame_rate_num else 29.97
+    seconds = {}
+    analyzer = CMAnalyzer(ctx, num_frames, fps, jls_options=jls_options,
+                          loose_logo_detection=loose_logo_detection,
+                          jls_script=jls_script)
+    matcher = None
+    best = -1
+    fade = None
+    logo_spans = None
+    logo_ratio = 0.0
+    logo_path = ""
+    scene_changes: list[int] = []
+    silence: list[tuple[int, int]] = []
+    count = 0
+
+    def write(name: str, text: str) -> None:
+        if out_dir is not None:
+            with open(os.path.join(out_dir, FILES[name]), "w") as f:
+                f.write(text)
+
+    if num_frames > 0:
+        t0 = time.perf_counter()
+        if logos:
+            matcher = LogoFrameMatcher(ctx, logos, device=device)
+            # the 11-step fade sweep feeds both matching and the per-frame
+            # erase fades (ref AMTAnalyzeLogo's NUM_FADE)
+            matcher.begin_scan(fmt.width, fmt.height, fps,
+                               FADE_STEPS_NO_DELOGO if no_delogo
+                               else FADE_STEPS)
+        count, diffs, hists = luma_pass(
+            (planes[0] for planes in open_frames()), num_frames, batch,
+            device, matcher)
+        if matcher is not None:
+            matcher.end_scan()
+        seconds["stream"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        if len(diffs):
+            corr = cm_ops.histogram_correlation_from_hists(hists)
+            scene_changes = cm_ops.detect_scene_changes(diffs, corr)
+            write("scpos", format_scene_changes_text(scene_changes, []))
+        if matcher is not None and count:
+            best = matcher.select_logo()
+            if out_dir is not None:
+                matcher.write_result(
+                    os.path.join(out_dir, FILES["logo_frames"]))
+            logo_spans = [(iv.s_best, iv.e_best + 1)
+                          for iv in matcher.intervals()]
+            logo_ratio = matcher.logo_ratio
+            logo_path = logos[best].header.name or f"logo{best}"
+            if not no_delogo:
+                fade = matcher.fade_curve()
+        seconds["decision"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        silence = detect_silence(pcm_s16, fps, device)
+        seconds["silence"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    result = analyzer.analyze(logo_spans, logo_ratio, logo_path,
+                              scene_changes, silence)
+    write("trim", format_trim_avs(result.trims) + "\n")
+    write("div", "\n".join(str(d) for d in result.divs[:-1]) + "\n")
+    if any(r > 0 for r in pmt_cut_side_rate):
+        analyzer.apply_pmt_cut(pmt_cut_side_rate, list(pid_changes or []))
+    elements = jls_elements(analyzer.result, num_frames, fps)
+    write("jls", format_jls(elements))
+    seconds["decision"] = (seconds.get("decision", 0.0)
+                           + time.perf_counter() - t0)
+    return CMStageResult(matcher, best, fade, scene_changes, silence,
+                         logo_spans, analyzer.result, elements, count,
+                         seconds)

@@ -1,31 +1,49 @@
-"""The per-output-file filter stage: logo match -> erase -> analysis ->
-output synthesis.
+"""The per-output-file filter stage: logo erase -> analysis -> output
+synthesis, fed by the CM analysis pass or by a logo pass of its own.
 
 Counterpart of the filter part of amatsukaze_tpu/pipeline/transcode.py:
-the logo matching of the CM analysis pass (LogoFrameMatcher.scan_frames,
-select_logo, fade_curve), then `_encode_one` (LogoEraser, FilterGraph
-analyze, output_spec) and `_pump_filtered` (per-plane batches through the
-filter graph). The filtered frames go to a caller-supplied sink instead of
-an encoder pump.
+`_encode_one` (:839-956: the erase entries, LogoEraser, FilterGraph
+analyze with the frame spill, output_spec, the filter dump, the v2
+timecode file, the CM zones through make_out_zones) and `_pump_filtered`
+(per-plane batches through the filter graph). The filtered frames go to a
+caller-supplied sink instead of an encoder pump.
 
+    cm = run_cm_analysis(ctx, open_frames, num_frames, fmt, logos)
     result = run_filter_stage(ctx, open_frames, num_frames, fmt, logos,
-                              "kfm_vfr", sink)
+                              "kfm_vfr", sink, cm=cm)
 
 `open_frames()` returns a fresh iterator of (Y, U, V) uint8 planes of the
-file's frames; it is opened three times (logo match, analysis, output), as
-the JAX pipeline decodes the source once per pass.
+file's frames. The passes over it:
+
+- logo pass, only without `cm`: the luma stream of pipeline/cm_stage.py with
+  the scene metrics off, only the logos' windows crossing to the device
+  (with `cm`, the CM pass has scored the logos on its frames already);
+- analysis (KFM modes): one decode and one erase; the erased frames are
+  retained in host RAM (FrameSpill, the whole selection or nothing);
+- output: reads the retained frames when the spill holds them all, and
+  otherwise decodes and erases again, as the JAX pipeline does.
+
+So with the spill a KFM output file costs one decode and one erase.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..models.filter_graph import FilterGraph, FilterOutput, normalize_u8
+from ..models.filter_graph import (FilterGraph, FilterOutput, make_out_zones,
+                                   normalize_u8)
 from ..models.logo import LogoFrameMatcher
 from ..models.logo_erase import LogoEraser
+from ..models.vfr import EncoderZone
+from .cm_stage import FADE_STEPS, FADE_STEPS_NO_DELOGO, luma_pass
+
+HEAD_RAMP = 8  # frames of the first chunk of the output pass
+CM_ZONES_MODES = ("both", "non_cm", "cm")  # the reference's CMType
 
 
 @dataclass
@@ -36,47 +54,121 @@ class FilterStageResult:
     graph: FilterGraph
     spec: FilterOutput
     num_out_frames: int  # frames handed to the sink
+    # encoder zones of the CM zones in output frames (cm_zones_mode "both")
+    zones: list = field(default_factory=list)
+    spill_frames: int = 0  # frames the output pass read from the spill
     # wall seconds of each pass over the clip; each ends in a device fetch
     seconds: dict = field(default_factory=dict)
 
 
-# the reference's AMTAnalyzeLogo fade sweep, from which the erase fades come;
-# without an erase the two end points are enough to pick the logo
-FADE_STEPS = 11
-FADE_STEPS_NO_DELOGO = 2
-HEAD_RAMP = 8  # frames of the first chunk of the output pass
+class FrameSpill:
+    """The analysis pass's output frames (post-erase, in order) retained in
+    host RAM so that the output pass consumes them directly, skipping the
+    second decode and erase (transcode.py:1302-1359 `_FrameSpill`; the
+    reference pays the same double pass through AMTSource's frame cache).
+    The unit is the whole selection: one overflow of the cap drops
+    everything, since a prefix does not spare a second full pass. Only
+    8-bit planes are kept."""
+
+    def __init__(self, cap_bytes: int):
+        self.cap = cap_bytes
+        self.frames: list = []
+        self.nbytes = 0
+        self.complete = True
+
+    def offer(self, planes) -> None:
+        if not self.complete:
+            return
+        if any(p.dtype != np.uint8 for p in planes):
+            self._drop()
+            return
+        # a view pins its whole base: the eraser yields per-frame views of
+        # [batch, H, W] arrays, so keeping one would hold the batch and
+        # defeat the cap's accounting. Copy those; keep planes whose base
+        # is about their own size.
+        out = []
+        sz = 0
+        for p in planes:
+            if getattr(p.base, "nbytes", p.nbytes) > 2 * p.nbytes:
+                p = np.ascontiguousarray(p)
+            out.append(p)
+            sz += p.nbytes
+        if self.nbytes + sz > self.cap:
+            self._drop()
+            return
+        self.frames.append(tuple(out))
+        self.nbytes += sz
+
+    def _drop(self) -> None:
+        self.frames = []
+        self.nbytes = 0
+        self.complete = False
+
+    def usable(self) -> bool:
+        return self.complete and bool(self.frames)
+
+
+def analysis_cache_cap(cap_bytes: int | None = None) -> int:
+    """Spill cap (transcode.py:1362-1371 `_analysis_cache_cap`): the given
+    bytes, else 1/8 of host RAM within [256 MB, 4 GB]."""
+    if cap_bytes is not None:
+        return cap_bytes
+    try:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    except (OSError, ValueError, AttributeError):
+        return 256 << 20
+    return int(min(max(total // 8, 256 << 20), 4 << 30))
 
 
 def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
                      mode: str, sink, batch: int = 32, device=None,
-                     no_delogo: bool = False,
-                     kfm_ucf: bool = True) -> FilterStageResult:
+                     no_delogo: bool = False, kfm_ucf: bool = True,
+                     cm=None, erase_logos=(), cm_zones_mode: str = "both",
+                     analysis_cache_bytes: int | None = None,
+                     timecode_path: str | None = None,
+                     dump_path: str | None = None) -> FilterStageResult:
     """Run the filter core over one output file and call `sink((y, u, v))`
     with every output frame (uint8 planes), in order.
 
-    logos: candidate LogoData of the service (may be empty); the
-    best-matching one is erased with the matcher's fade curve. With
-    `no_delogo` the matcher sweeps only the two end fades and nothing is
-    erased; the selected logo and its fade curve are still returned.
+    cm: the file's CMStageResult (pipeline/cm_stage.run_cm_analysis). Its
+    best logo is erased with its fade curve (none when it ran under
+    no_delogo), and its CM zones become `result.zones`. Without it, the
+    stage scores `logos` (candidate LogoData, may be empty) itself, and the
+    best one is erased with the matcher's fade curve; with `no_delogo` the
+    matcher sweeps only the two end fades and nothing is erased (the
+    selected logo and its fade curve are still returned).
+    erase_logos: LogoData erased at fade 1 on every frame.
+    cm_zones_mode: the output file's CM type ("both", "non_cm", "cm"); only
+    "both" carries the CM zones to the encoder.
+    analysis_cache_bytes: the spill's cap (default analysis_cache_cap()).
+    timecode_path / dump_path: write the v2 timecode file (VFR output
+    only) / the filter graph's debug_dump JSON there.
     `kfm_ucf` is FilterGraph.kfm_ucf."""
+    if cm_zones_mode not in CM_ZONES_MODES:
+        raise ValueError(f"cm_zones_mode must be one of {CM_ZONES_MODES}")
     seconds = {}
     t0 = time.perf_counter()
-    matcher = None
-    best = -1
-    fade = None
     entries = []
-    if logos:
-        matcher = LogoFrameMatcher(ctx, logos, device=device)
-        matcher.scan_frames((planes[0] for planes in open_frames()),
-                            fmt.width, fmt.height, fmt.frame_rate,
-                            batch=batch,
-                            fade_steps=(FADE_STEPS_NO_DELOGO if no_delogo
-                                        else FADE_STEPS))
-        if matcher.num_frames:
-            best = matcher.select_logo()
-            fade = matcher.fade_curve()
-            if not no_delogo:
-                entries.append((logos[best], fade))
+    if cm is not None:
+        matcher, best, fade = cm.matcher, cm.best_logo, cm.fade
+        if fade is not None:
+            entries.append((matcher.logos[best], fade))
+    else:
+        matcher, best, fade = None, -1, None
+        if logos:
+            matcher = LogoFrameMatcher(ctx, logos, device=device)
+            matcher.begin_scan(fmt.width, fmt.height, fmt.frame_rate,
+                               FADE_STEPS_NO_DELOGO if no_delogo
+                               else FADE_STEPS)
+            luma_pass((planes[0] for planes in open_frames()), num_frames,
+                      batch, device, matcher, scene_metrics=False)
+            matcher.end_scan()
+            if matcher.num_frames:
+                best = matcher.select_logo()
+                fade = matcher.fade_curve()
+                if not no_delogo:
+                    entries.append((logos[best], fade))
+    entries.extend((lg, None) for lg in erase_logos)
     eraser = LogoEraser(ctx, entries, fmt.width, fmt.height, device=device)
     seconds["logo_match"] = time.perf_counter() - t0
 
@@ -89,14 +181,46 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     t0 = time.perf_counter()
     fg = FilterGraph(ctx, mode=mode, batch=batch, device=device)
     fg.kfm_ucf = kfm_ucf
+    spill = None
     if fg.mode in FilterGraph.KFM_FAMILY:
-        fg.analyze((planes[0] for planes in filtered_frames()), num_frames)
+        spill = FrameSpill(analysis_cache_cap(analysis_cache_bytes))
+
+        def tee_y():
+            for planes in filtered_frames():
+                spill.offer(planes)
+                yield planes[0]
+
+        fg.analyze(tee_y(), num_frames)
+        if not spill.usable():
+            spill = None
     spec = fg.output_spec(num_frames, fmt)
     seconds["analysis"] = time.perf_counter() - t0
+    if dump_path is not None:
+        with open(dump_path, "w") as f:
+            json.dump(fg.debug_dump(num_frames), f, indent=1)
+    if timecode_path is not None and spec.time_codes:
+        with open(timecode_path, "w") as f:
+            f.write("# timecode format v2\n")
+            # one start time per output frame (the plan also carries the
+            # trailing end time)
+            f.writelines(f"{tc:.6f}\n"
+                         for tc in spec.time_codes[:spec.num_out_frames])
+    zones = []
+    if cm is not None and cm_zones_mode == "both":
+        zones = [EncoderZone(z.start_frame, z.end_frame)
+                 for z in cm.result.cmzones]
+    if fg.mode != FilterGraph.MODE_NONE:
+        zones = make_out_zones(zones, list(range(num_frames)),
+                               spec.num_out_frames, spec.time_codes,
+                               fmt.frame_rate_num, fmt.frame_rate_denom)
+
     t0 = time.perf_counter()
-    n_out = pump_filtered(fg, filtered_frames(), sink, batch)
+    src = iter(spill.frames) if spill is not None else filtered_frames()
+    n_out = pump_filtered(fg, src, sink, batch)
     seconds["output"] = time.perf_counter() - t0
-    return FilterStageResult(matcher, best, fade, fg, spec, n_out, seconds)
+    return FilterStageResult(matcher, best, fade, fg, spec, n_out, zones,
+                             len(spill.frames) if spill is not None else 0,
+                             seconds)
 
 
 def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:

@@ -2,8 +2,9 @@
 
 Counterpart of amatsukaze_tpu/utils/context.py (AMTContext, parity target
 Amatsukaze/StreamUtils.hpp:314-511), cut to what the filter core uses: the
-log calls. Error counters, the DRCS map and the temp-file registry belong
-to the host layers that are not ported yet.
+log calls and the error the CM models raise on malformed input. Error
+counters, the DRCS map and the temp-file registry belong to the host
+layers that are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +13,14 @@ import sys
 from dataclasses import dataclass
 
 _LEVELS = {"debug": 0, "info": 1, "warn": 2, "error": 3}
+
+
+class AMTError(Exception):
+    """Framework error (reference: CoreUtils.hpp exception hierarchy)."""
+
+
+class FormatError(AMTError):
+    pass
 
 
 @dataclass

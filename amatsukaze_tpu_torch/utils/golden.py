@@ -19,6 +19,13 @@ The writer checks every one (inside the logo box's reach, one code value)
 and stores, for each frame that holds one, the port's CPU digest beside the
 JAX one under ``tie_digests``; such a frame must equal either. The small
 clip has none.
+
+testdata/golden_cm.json holds the CM analysis pass over the 96x128
+broadcast layout of utils.synth_clip in the same way (written by
+tests/test_torch_cm_stage.py from a JAX composition of the same steps):
+scene changes, silence, logo, logo spans, trims, divs, CM zones, JLS
+elements and the text of the five files exact, the fade curve within
+FADE_TOL.
 """
 
 from __future__ import annotations
@@ -97,3 +104,62 @@ def save(clips: dict, meta: dict) -> None:
     PATH.parent.mkdir(parents=True, exist_ok=True)
     PATH.write_text(json.dumps({"meta": meta, "clips": clips},
                                separators=(",", ":")) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# the CM analysis pass over the broadcast layout (testdata/golden_cm.json)
+# ---------------------------------------------------------------------------
+
+CM_PATH = PATH.parent / "golden_cm.json"
+_CM_EXACT = ("scene_changes", "silence", "best_logo", "logo_spans", "trims",
+             "divs", "cmzones", "jls", "files")
+
+
+def cm_record(scene_changes, silence, best_logo, logo_spans, fade, trims,
+              divs, cmzones, jls, files: dict) -> dict:
+    """One CM pass as plain JSON types: spans and zones as [start, end]
+    (cmzones: objects with start_frame / end_frame), JLS elements as
+    [frame_start, frame_end, seconds], `files` as {name: text}."""
+    return dict(
+        scene_changes=[int(s) for s in scene_changes],
+        silence=[[int(s), int(e)] for s, e in silence],
+        best_logo=int(best_logo),
+        logo_spans=None if logo_spans is None else [
+            [int(s), int(e)] for s, e in logo_spans],
+        fade=None if fade is None else [float(x) for x in fade],
+        trims=[int(t) for t in trims], divs=[int(d) for d in divs],
+        cmzones=[[int(z.start_frame), int(z.end_frame)] for z in cmzones],
+        jls=[[int(e.frame_start), int(e.frame_end), int(e.seconds)]
+             for e in jls],
+        files=dict(files))
+
+
+def cm_stage_record(cm, files: dict) -> dict:
+    """cm_record of a pipeline.cm_stage.CMStageResult."""
+    r = cm.result
+    return cm_record(cm.scene_changes, cm.silence, cm.best_logo,
+                     cm.logo_spans, cm.fade, r.trims, r.divs, r.cmzones,
+                     cm.jls_elements, files)
+
+
+def assert_cm_matches(got: dict, want: dict, what: str) -> None:
+    """Raise AssertionError naming what differs between two CM records;
+    the fade curve within FADE_TOL, everything else exact."""
+    diff = [k for k in _CM_EXACT if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"{what}: CM results differ in {diff}")
+    if (got["fade"] is None) != (want["fade"] is None) or (
+            got["fade"] is not None and not (
+                len(got["fade"]) == len(want["fade"]) and np.allclose(
+                    got["fade"], want["fade"], rtol=0, atol=FADE_TOL))):
+        raise AssertionError(f"{what}: fade curves differ")
+
+
+def load_cm() -> dict:
+    """{clip name: record}."""
+    return json.loads(CM_PATH.read_text())["clips"]
+
+
+def save_cm(clips: dict, meta: dict) -> None:
+    CM_PATH.write_text(json.dumps({"meta": meta, "clips": clips},
+                                  separators=(",", ":")) + "\n")

@@ -9,6 +9,12 @@ differs in its last bit between numpy builds, which would flip rounded
 pixels), and results recorded from one package on one machine can be held
 against another package on another (testdata/golden_stage.json, written by
 tests/test_torch_golden.py).
+
+The broadcast layout of the CM analysis (make_broadcast_clip,
+make_broadcast_pcm) is made the same way: program, CM, program, with scene
+cuts, the logo on in the program parts and near-silence on the CM cuts, so
+that the decisions have a known truth (BROADCAST_TRUTH); its results are
+recorded in testdata/golden_cm.json (tests/test_torch_cm_stage.py).
 """
 
 from __future__ import annotations
@@ -121,3 +127,137 @@ def golden_clip(name: str):
     geom = {k: spec[k] for k in ("h", "w", "lh", "lw", "lx", "ly")}
     return (make_clip(**spec), video_format(spec["h"], spec["w"]),
             make_logos(**geom), batch)
+
+
+# ---------------------------------------------------------------------------
+# the broadcast layout of the CM analysis: program, CM, program
+# ---------------------------------------------------------------------------
+
+BROADCAST_FRAMES = 1340
+CM_START, CM_END = 450, 900  # one 15.015 s CM unit
+PROGRAM_CUT = 210  # a cut inside the first program part, with no silence
+SILENCE_SECONDS = 0.5  # of near-silence centred on each CM cut
+PCM_RATE = 48000  # stereo, interleaved int16
+NOISE_SLACK = 64
+# per scene: first frame, film (3:2 telecined) or interlaced video, logo
+# painted, and (base, amplitude, period, row period) of Y, U and V. The
+# scenes' luma ranges barely overlap, so each cut moves the mean absolute
+# difference far over 30 and the histogram correlation far under 0.85,
+# while a scene pans by one or two pixels a field, far under both. The
+# logo (blended toward 200) stands out on the program scenes, and the CM
+# is darker still, so that nothing in it looks like the logo, at both
+# sizes.
+BROADCAST_SCENES = (
+    (0, True, True, ((60.0, 25.0, 9.0, 11.0), (110.0, 12.0, 6.0, 7.0),
+                     (140.0, 12.0, 7.0, 5.0))),
+    (PROGRAM_CUT, True, True, ((110.0, 25.0, 12.0, 8.0),
+                               (140.0, 14.0, 5.0, 9.0),
+                               (100.0, 14.0, 8.0, 6.0))),
+    (CM_START, False, False, ((25.0, 12.0, 7.0, 13.0),
+                              (90.0, 16.0, 9.0, 5.0),
+                              (170.0, 16.0, 5.0, 8.0))),
+    (CM_END, True, True, ((75.0, 25.0, 10.0, 9.0), (125.0, 10.0, 7.0, 6.0),
+                          (120.0, 10.0, 6.0, 7.0))),
+)
+# the recorded (96x128) and the card's (1440x1080) sizes of the layout
+BROADCAST_CLIPS = {
+    "small": dict(h=96, w=128, lh=16, lw=24, lx=96, ly=8, seed=5),
+    "broadcast": dict(h=1080, w=1440, lh=96, lw=256, lx=1120, ly=40,
+                      seed=1),
+}
+BROADCAST_TRUTH = dict(trims=[0, CM_START, CM_END, BROADCAST_FRAMES],
+                       cm_zones=[(CM_START, CM_END)],
+                       scene_changes=[PROGRAM_CUT, CM_START, CM_END])
+
+
+def _scene_fields(first: int, end: int, film: bool) -> list:
+    """(top offset, bottom offset) in pixels of pan, per coded frame of a
+    scene: 3:2 telecined film moves two pixels a film frame, interlaced
+    video one pixel a field."""
+    n = end - first
+    if not film:
+        return [(2 * k, 2 * k + 1) for k in range(n)]
+    out = []
+    f = 0
+    while len(out) < n:
+        a, b, c, d = (2 * (f + i) for i in range(4))
+        out += [(a, a), (a, b), (b, c), (c, c), (d, d)]
+        f += 4
+    return out[:n]
+
+
+def _texture(h: int, w: int, base, amp, period, row_period) -> np.ndarray:
+    """A still picture wider than the frame, panned through by offset,
+    rounded to int16 (float64 arithmetic only)."""
+    yy = np.arange(h, dtype=np.float64)[:, None]
+    xx = np.arange(w, dtype=np.float64)[None, :]
+    t = (base + amp * np.sin(xx / period) * np.cos(yy / row_period)
+         + 0.25 * amp * np.sin((xx * 0.37 + yy * 0.61) / period))
+    return np.rint(t).astype(np.int16)
+
+
+def make_broadcast_clip(h, w, lh, lw, lx, ly, seed):
+    """Yield (Y, U, V) uint8 planes of the seeded broadcast layout, one
+    frame at a time (a 1440x1080 clip never sits whole in host RAM), at
+    30000/1001 fps: program [0, 450) with the logo painted (a cut at 210),
+    CM [450, 900) without it, program [900, 1340) with it (BROADCAST_SCENES).
+    Every call yields the same bytes."""
+    rng = np.random.default_rng((seed, 0))
+    subs = (1, 2, 2)
+    alphas = [logo_alpha(lh // s, lw // s).astype(np.float64) for s in subs]
+    # noise in {-1, 0, 1}: a pool per plane drawn once, each frame's noise
+    # a window of it at a seeded offset (drawing 2 M values a frame would
+    # take most of the generator's time)
+    pools = [rng.integers(-1, 2, (h // s + NOISE_SLACK, w // s + NOISE_SLACK),
+                          dtype=np.int16) for s in subs]
+    bounds = [s[0] for s in BROADCAST_SCENES] + [BROADCAST_FRAMES]
+    for (first, film, logo, params), end in zip(BROADCAST_SCENES, bounds[1:]):
+        fields = _scene_fields(first, end, film)
+        reach = fields[-1][1] + 1
+        textures = [_texture(h // s, w // s + reach // s + 1, *p)
+                    for s, p in zip(subs, params)]
+        for top, bottom in fields:
+            planes = []
+            for p, (sub, tex) in enumerate(zip(subs, textures)):
+                gw = w // sub
+                f = tex[:, top // sub : top // sub + gw].copy()
+                if bottom != top:
+                    f[1::2] = tex[1::2, bottom // sub : bottom // sub + gw]
+                if logo:
+                    y0, x0 = ly // sub, lx // sub
+                    al = alphas[p]
+                    win = f[y0 : y0 + al.shape[0], x0 : x0 + al.shape[1]]
+                    win[:] = np.rint(win * (1.0 - al) + al * LOGO_COLORS[p])
+                dy, dx = rng.integers(0, NOISE_SLACK, 2)
+                f += pools[p][dy : dy + f.shape[0], dx : dx + f.shape[1]]
+                planes.append(np.clip(f, 0, 255).astype(np.uint8))
+            yield tuple(planes)
+
+
+def make_broadcast_pcm(seed) -> np.ndarray:
+    """Interleaved stereo int16 PCM at 48 kHz for the broadcast layout:
+    uniform noise at 0.3 of full scale, with SILENCE_SECONDS of
+    near-silence (0.001 of full scale) centred on each CM cut."""
+    rng = np.random.default_rng((seed, 1))
+    n = round(BROADCAST_FRAMES * 1001 / 30000 * PCM_RATE)
+    loud, quiet = round(0.3 * 32767), round(0.001 * 32767)
+    pcm = rng.integers(-loud, loud + 1, (n, 2), dtype=np.int16)
+    for cut in (CM_START, CM_END):
+        mid = cut * 1001 / 30000 * PCM_RATE
+        a = round(mid - SILENCE_SECONDS / 2 * PCM_RATE)
+        b = round(mid + SILENCE_SECONDS / 2 * PCM_RATE)
+        pcm[a:b] = rng.integers(-quiet, quiet + 1, (b - a, 2), dtype=np.int16)
+    return pcm.reshape(-1)
+
+
+def broadcast_clip(name: str):
+    """(open_frames, num_frames, format, logos, pcm) of one size of the
+    broadcast layout; open_frames() starts a fresh lazy pass."""
+    spec = BROADCAST_CLIPS[name]
+    geom = {k: spec[k] for k in ("h", "w", "lh", "lw", "lx", "ly")}
+
+    def open_frames():
+        return make_broadcast_clip(**spec)
+
+    return (open_frames, BROADCAST_FRAMES, video_format(spec["h"], spec["w"]),
+            make_logos(**geom), make_broadcast_pcm(spec["seed"]))

@@ -34,7 +34,20 @@ result line):
    1440x1080, 45 frames) on the card against the results recorded from the
    JAX package on the CPU (testdata/golden_stage.json, written by
    tests/test_torch_golden.py): logo, decisions, plan and every frame
-   digest exact, the fade curve within 1e-5.
+   digest exact, the fade curve within 1e-5;
+7. "cm pass": the CM analysis over the seeded 1440x1080 broadcast layout of
+   utils/synth_clip.py (1340 frames: program, a 15 s CM, program; batch 32,
+   11 fades, two candidate logos). scene_metrics_batch on the card
+   bit-equal to the CPU on three batches with their carries, and its device
+   time; pipeline.cm_stage.run_cm_analysis with the counts set to 0 just
+   before and read just after (two logo_eval launches per batch, nothing
+   else), which must find the layout's truth exactly (scene changes at the
+   cuts, two silence spans, the logo, trims [0, 450, 900, 1340], one CM
+   zone); one more run under torch.profiler (busy share); the 96x128
+   layout against testdata/golden_cm.json (written by
+   tests/test_torch_cm_stage.py); run_filter_stage(cm=...) in kfm_vfr over
+   the 1440x1080 layout with the frame spill usable and forced off: out
+   zones, timecode text and every frame digest equal.
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -747,6 +760,220 @@ def golden_reference(dev) -> None:
                 f"launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CM analysis pass and the filter stage it feeds
+# ---------------------------------------------------------------------------
+
+def broadcast_batches(open_frames, wanted: set, batch=BATCH) -> dict:
+    """{batch index: (uint8 [batch, H, W] luma, the frame before it)} of
+    the wanted batches, read from one lazy pass over the clip."""
+    out = {}
+    prev = None
+    chunk = []
+    for i, planes in enumerate(open_frames()):
+        chunk.append(planes[0])
+        if len(chunk) == batch:
+            k = i // batch
+            if k in wanted:
+                out[k] = (np.stack(chunk), prev)
+            prev = chunk[-1]
+            chunk = []
+            if len(out) == len(wanted):
+                break
+    return out
+
+
+def check_scene_metrics(dev, open_frames) -> dict:
+    """scene_metrics_batch on the card against the port on the CPU, on
+    batches of the broadcast clip with their carries (the first batch
+    carries its own frame 0; batch 14 holds the cut at 450): diffs and
+    histograms bit-equal. Then its device time per batch, cold (the inputs
+    rotate over three batches, 150 MB, as the caller has just uploaded the
+    batch), beside its bytes bound."""
+    from amatsukaze_tpu_torch.ops import cm as cm_ops
+
+    got = broadcast_batches(open_frames, {0, 1, 14})
+    dev_batches = []
+    for k, (frames, prev) in sorted(got.items()):
+        cpu = torch.from_numpy(frames)
+        carry = cpu[0] if prev is None else torch.from_numpy(prev)
+        want = cm_ops.scene_metrics_batch(cpu, carry)
+        x = cpu.to(dev)
+        card = cm_ops.scene_metrics_batch(x, carry.to(dev))
+        for name, a, b in zip(("diffs", "histograms"), card, want):
+            if not torch.equal(a.cpu(), b):
+                n = (a.cpu() != b).sum().item()
+                raise AssertionError(f"scene metrics batch {k}: {n} {name} "
+                                     f"differ from the CPU")
+        dev_batches.append((x, carry.to(dev)))
+    b, h, w = dev_batches[0][0].shape
+    t = time_ms(lambda i: cm_ops.scene_metrics_batch(
+        *dev_batches[i % len(dev_batches)]), 10)
+    n_bytes = b * h * w + h * w + b * (4 + 4 * cm_ops.BINS)
+    out = dict(shape=[b, h, w], ms=t["ms"], ms_min=t["min"], ms_max=t["max"],
+               bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    log(f"check scene_metrics_batch on batches 0, 1 and 14 of the broadcast "
+        f"clip ({b}x{h}x{w}, with their carries): diffs and histograms "
+        f"bit-equal to the CPU; device {t} ms per batch (cold), bytes bound "
+        f"{out['bound_ms']:.4f} ms")
+    return out
+
+
+def run_cm(dev, name: str, out_dir=None):
+    from amatsukaze_tpu_torch.pipeline.cm_stage import run_cm_analysis
+    from amatsukaze_tpu_torch.utils import synth_clip
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    open_frames, n, fmt, logos, pcm = synth_clip.broadcast_clip(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm = run_cm_analysis(AMTContext(level="warn"), open_frames, n, fmt,
+                         logos, pcm_s16=pcm, batch=BATCH, device=dev,
+                         out_dir=out_dir)
+    torch.cuda.synchronize()
+    return cm, time.perf_counter() - t0
+
+
+def cm_truth(cm, what: str) -> None:
+    """The broadcast layout's constructed truth, exactly."""
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    truth = synth_clip.BROADCAST_TRUTH
+    r = cm.result
+    got = dict(trims=r.trims, cm_zones=[(z.start_frame, z.end_frame)
+                                        for z in r.cmzones],
+               scene_changes=cm.scene_changes)
+    bad = [k for k in truth if got[k] != truth[k]]
+    if bad or cm.best_logo != 0:
+        raise AssertionError(f"{what}: {bad} {got}, logo {cm.best_logo}")
+    cuts = truth["cm_zones"][0]
+    if len(cm.silence) != 2 or not all(
+            s < c < e for (s, e), c in zip(cm.silence, cuts)):
+        raise AssertionError(f"{what}: silence {cm.silence}")
+
+
+def profile_cm_pass(dev) -> dict:
+    """Device busy share of one CM pass over the broadcast clip."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, secs = run_cm(dev, "broadcast")
+    acts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in acts) / 1e6
+    if not busy_s:
+        log("profile cm pass: no device time recorded (not measured)")
+        return dict(wall_seconds=secs, device_busy_share=None)
+    log(f"profile cm pass: wall {secs:.3f} s, device busy {busy_s:.4f} s "
+        f"({100 * busy_s / secs:.2f}%)")
+    for e in sorted(acts, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile cm pass {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:90]}")
+    return dict(wall_seconds=secs, device_busy_seconds=busy_s,
+                device_busy_share=busy_s / secs)
+
+
+def cm_golden(dev) -> None:
+    """The 96x128 broadcast clip's CM pass on the card against the results
+    recorded from the JAX package (testdata/golden_cm.json)."""
+    import tempfile
+    from pathlib import Path
+
+    from amatsukaze_tpu_torch.pipeline import cm_stage
+    from amatsukaze_tpu_torch.utils import golden
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        cm, secs = run_cm(dev, "small", out_dir)
+        files = {k: (Path(out_dir) / f).read_text()
+                 for k, f in cm_stage.FILES.items()}
+    golden.assert_cm_matches(golden.cm_stage_record(cm, files),
+                             golden.load_cm()["small"], "golden cm small")
+    log(f"golden cm small: 96x128, {cm.num_frames} frames, {secs:.3f} s: "
+        f"scene changes, silence, logo, spans, trims, divs, zones, JLS "
+        f"elements and the five files exact, fade within {golden.FADE_TOL}")
+
+
+def cm_filter_stage(dev, cm) -> dict:
+    """run_filter_stage(cm=...) in kfm_vfr over the broadcast clip, with the
+    frame spill usable and forced off: out zones, timecode text and every
+    output frame digest equal."""
+    import tempfile
+    from pathlib import Path
+
+    from amatsukaze_tpu_torch.pipeline.filter_stage import run_filter_stage
+    from amatsukaze_tpu_torch.utils import synth_clip
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    open_frames, n, fmt, logos, _ = synth_clip.broadcast_clip("broadcast")
+    runs = {}
+    for label, cap in (("spill", None), ("no spill", 0)):
+        sink = Sink(((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+        with tempfile.TemporaryDirectory() as d:
+            tc = Path(d) / "timecode.txt"
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_filter_stage(AMTContext(level="warn"), open_frames, n,
+                                   fmt, logos, "kfm_vfr", sink, batch=BATCH,
+                                   device=dev, cm=cm,
+                                   analysis_cache_bytes=cap,
+                                   timecode_path=str(tc))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            text = tc.read_text() if tc.exists() else ""
+        runs[label] = (res, sink, text, secs, counts)
+        log(f"cm filter stage kfm_vfr ({label}): {n} frames in {secs:.3f} s "
+            f"= {n / secs:.2f} frames/s; passes {res.seconds}, of which the "
+            f"test sink {sink.seconds:.3f} s; {len(sink.digests)} frames out,"
+            f" {res.spill_frames} from the spill; zones "
+            f"{[(z.start_frame, z.end_frame) for z in res.zones]}; launches "
+            f"{counts}")
+    (a, sa, ta, _, ca), (b, sb, tb, _, _) = runs["spill"], runs["no spill"]
+    if a.spill_frames != n or b.spill_frames != 0:
+        raise AssertionError(f"spill frames {a.spill_frames}, "
+                             f"{b.spill_frames}")
+    za = [(z.start_frame, z.end_frame) for z in a.zones]
+    if (len(za) != 1 or za != [(z.start_frame, z.end_frame) for z in b.zones]
+            or not ta or ta != tb or sa.digests != sb.digests):
+        raise AssertionError("cm filter stage: the spill changed the result")
+    if ca.get("costs", 0) <= 0 or ca.get("logo_eval", 0) != 0:
+        raise AssertionError(f"cm filter stage launches {ca}")
+    out = {label: dict(seconds=secs, pass_seconds=res.seconds,
+                       sink_seconds=sink.seconds)
+           for label, (res, sink, _, secs, _) in runs.items()}
+    return dict(out, launches=ca, zones=za, out_frames=len(sa.digests))
+
+
+def cm_phase(dev) -> dict:
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    open_frames = synth_clip.broadcast_clip("broadcast")[0]
+    out = {"scene_metrics": check_scene_metrics(dev, open_frames)}
+    reset_counts()
+    cm, secs = run_cm(dev, "broadcast")
+    counts = read_counts()
+    cm_truth(cm, "cm pass 1440x1080")
+    n_batches = -(-cm.num_frames // BATCH)
+    if counts.get("logo_eval") != 2 * n_batches or len(counts) != 1:
+        raise AssertionError(f"cm pass launches {counts}, {n_batches} "
+                             f"batches x 2 logos")
+    out.update(frames=cm.num_frames, seconds=secs, fps=cm.num_frames / secs,
+               pass_seconds=cm.seconds, launches=counts)
+    log(f"cm pass 1440x1080: {cm.num_frames} frames in {secs:.3f} s = "
+        f"{out['fps']:.2f} frames/s (stream {cm.seconds['stream']:.3f} s, "
+        f"silence {cm.seconds['silence']:.3f} s, decision "
+        f"{cm.seconds['decision']:.3f} s); K3 launches {counts['logo_eval']};"
+        f" scene changes {cm.scene_changes}, silence {cm.silence}, logo "
+        f"{cm.best_logo}, spans {cm.logo_spans}, trims {cm.result.trims}, "
+        f"zones {[(z.start_frame, z.end_frame) for z in cm.result.cmzones]}")
+    out["profile"] = profile_cm_pass(dev)
+    cm_golden(dev)
+    out["stage"] = cm_filter_stage(dev, cm)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -791,6 +1018,10 @@ def main() -> int:
     golden_reference(dev)
     log(f"phase golden reference: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    cm = cm_phase(dev)
+    log(f"phase cm pass: {time.perf_counter() - t0:.2f} s")
+
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
         ("yadif_fieldmatch[yadif]", "yadif_fieldmatch.cu",
@@ -798,11 +1029,12 @@ def main() -> int:
          main["yadif"]["launches"].get("yadif", 0), checks["yadif_y"]),
         ("yadif_fieldmatch[costs]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:716",
-         main["kfm_vfr"]["launches"].get("costs", 0), checks["costs_y"]),
+         main["kfm_vfr"]["launches"].get("costs", 0)
+         + cm["stage"]["launches"]["costs"], checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
-         + main["yadif"]["launches"]["logo_eval"],
-         checks["logo_eval_u8_f11"]),
+         + main["yadif"]["launches"]["logo_eval"]
+         + cm["launches"]["logo_eval"], checks["logo_eval_u8_f11"]),
     ]
     kernels = []
     for n, src, rep, launches, c in rows:
