@@ -9,12 +9,22 @@ AMTFilterSource, Amatsukaze/FilteredSource.hpp:136-635):
           (models.kfm)                                     [KFM pass 2]
   pass 3 (output):   per-batch synthesis on the device: weave / pulldown
           repair / bob and a gather for the KFM modes, the yadif_fieldmatch
-          kernel (frames only) for yadif                  [KFM pass 3]
+          kernel (frames only) for yadif, both fields of it for yadif60,
+          the motion-adaptive bob for qtgmc; then the optional post chain
+          (ops.denoise: QP-map deblock, temporal NR, deband, edge level)
+          and the Lanczos3 resize                         [KFM pass 3]
 
-Ported modes: none, yadif, kfm_vfr, kfm_vfr30, kfm_cfr24. The output is
-uint8, rounded on the device (the encoder feed rounds to uint8 anyway).
-The other modes of the JAX package (yadif60, qtgmc, svp, autovfr), the
-post chain, resize and the multi-chip mesh are not ported yet.
+Ported modes: none, yadif, yadif60, qtgmc, kfm_vfr, kfm_vfr30, kfm_cfr24.
+The output is rounded on the device to uint8, or to uint16 at src_bits 10
+(mode none with a post chain: the Main10 path). The JAX package's svp and
+autovfr modes and its multi-chip mesh are not ported yet.
+
+Where yadif feeds a post chain or a resize, the port follows the JAX
+package's production (TPU) path: the kernel's rounded uint8 frames feed the
+chain (the JAX package's CPU path feeds its unrounded float yadif). yadif60
+and qtgmc never reach a Pallas kernel in the JAX package, so their float
+frames feed the chain unrounded here too; yadif60 takes the kernel (one
+launch per field parity) only when nothing but the final rounding follows.
 """
 
 from __future__ import annotations
@@ -26,8 +36,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from ..ops import deint as deint_ops
-from ..ops import fused_filter
+from ..ops import denoise, fused_filter
+from ..ops.resize import resize_lanczos3
 from ..types import VideoFormat
 from ..utils.batching import batched
 from ..utils.device import resolve_device
@@ -47,7 +60,9 @@ class DeferredBatch:
         return self.n
 
     def materialize(self) -> np.ndarray:
-        return self.dev[: self.n].cpu().numpy()
+        out = self.dev[: self.n].cpu().numpy()
+        # 10-bit samples travel as int16 (torch has no uint16 arithmetic)
+        return out.view(np.uint16) if out.dtype == np.int16 else out
 
 
 @dataclass
@@ -64,7 +79,8 @@ class FilterGraph:
     """Deinterlace mode selection mirroring the reference's GUI matrix
     (EncodeServerData.cs:106-119; Server/Misc.cs:1290-1389):
 
-    - none / yadif (CFR30)
+    - none / yadif (CFR30) / yadif60 (CFR60, Yadifmod2 mode=1)
+    - qtgmc: motion-adaptive double-rate 60p bob (KFMDeint mode=1)
     - kfm_vfr: KFM VFR with 60p fallback (mode=4, thswitch=3)
     - kfm_vfr30: KFM VFR without the 60p fallback (thswitch=-1)
     - kfm_cfr24: decimate everything to 24p (KFMDeint mode=2)
@@ -72,18 +88,21 @@ class FilterGraph:
 
     MODE_NONE = "none"
     MODE_YADIF = "yadif"
+    MODE_YADIF60 = "yadif60"
+    MODE_QTGMC = "qtgmc"
     MODE_KFM_VFR = "kfm_vfr"
     MODE_KFM_VFR30 = "kfm_vfr30"
     MODE_KFM_CFR24 = "kfm_cfr24"
 
     KFM_FAMILY = frozenset({MODE_KFM_VFR, MODE_KFM_VFR30, MODE_KFM_CFR24})
-    ALL_MODES = (MODE_NONE, MODE_YADIF, MODE_KFM_VFR, MODE_KFM_VFR30,
-                 MODE_KFM_CFR24)
+    DOUBLE_RATE = frozenset({MODE_YADIF60, MODE_QTGMC})
+    ALL_MODES = (MODE_NONE, MODE_YADIF, MODE_YADIF60, MODE_QTGMC,
+                 MODE_KFM_VFR, MODE_KFM_VFR30, MODE_KFM_CFR24)
     # modes of the JAX package this port does not carry yet
-    NOT_PORTED = ("yadif60", "qtgmc", "svp", "autovfr")
+    NOT_PORTED = ("svp", "autovfr")
 
     def __init__(self, ctx, mode: str = "none", batch: int = 32,
-                 device=None):
+                 device=None, post_chain=None, qp_source=None):
         if mode in self.NOT_PORTED:
             raise NotImplementedError(
                 f"filter mode {mode!r} is not ported to PyTorch yet")
@@ -93,6 +112,17 @@ class FilterGraph:
         self.mode = mode
         self.batch = batch
         self.device = resolve_device(device)
+        # callable [B, H, W] float -> [B, H, W] float (build_post_chain)
+        self.post_chain = post_chain
+        # ts.qp_extract.QpMapSource in output-frame selection order: the
+        # deblock post filter's per-macroblock quantisers
+        self.qp_source = qp_source
+        # output size (width, height) of the luma plane, applied after the
+        # post chain (Lanczos3); chroma gets half of it
+        self.resize: tuple | None = None
+        # source sample bits: 8, or 10 for the Main10 post-chain-only path
+        # (mode none), which filters from/to 10 bits and outputs uint16
+        self.src_bits = 8
         # KFM's dirty-field (UCF) replacement (ref KfmEnableUcf): a FILM
         # frame whose chosen weave still combs gets bobbed instead
         self.kfm_ucf = True
@@ -102,16 +132,16 @@ class FilterGraph:
 
     def debug_dump(self, num_frames: int) -> dict:
         """JSON-able description of the configured graph and its analysis
-        decisions (the reference's --dump-filter AviSynth graph analog).
-        The keys are the JAX package's; the port has no post chain and no
-        QP maps yet, so theirs hold False and 0."""
+        decisions (the reference's --dump-filter AviSynth graph analog)."""
         out = {
             "mode": self.mode,
             "batch": self.batch,
             "num_source_frames": num_frames,
-            "post_chain": False,
-            "post_chain_wants_qp": False,
-            "qp_source_frames": 0,
+            "post_chain": bool(self.post_chain),
+            "post_chain_wants_qp": bool(
+                getattr(self.post_chain, "wants_qp", False)),
+            "qp_source_frames": (len(self.qp_source.results)
+                                 if self.qp_source is not None else 0),
         }
         if self.decisions is not None:
             modes = [int(d.mode) for d in self.decisions]
@@ -185,6 +215,10 @@ class FilterGraph:
     def output_spec(self, num_src_frames: int,
                     in_fmt: VideoFormat) -> FilterOutput:
         out = FilterOutput(out_format=copy.deepcopy(in_fmt))
+        if self.resize is not None:
+            # resized output resets SAR to 1:1 (ref MakeOutFormat :618-634)
+            out.out_format.width, out.out_format.height = self.resize
+            out.out_format.sar_width = out.out_format.sar_height = 1
         if self.mode in self.KFM_FAMILY and self.vfr_plan is not None:
             plan = self.vfr_plan
             out.durations = plan.durations
@@ -204,26 +238,76 @@ class FilterGraph:
         elif self.mode == self.MODE_YADIF:
             out.num_out_frames = num_src_frames
             out.out_format.progressive = True
+        elif self.mode in self.DOUBLE_RATE:
+            # every field becomes a progressive frame
+            out.num_out_frames = 2 * num_src_frames
+            out.out_format.mul_div_fps(2, 1)
+            out.out_format.progressive = True
         else:
             out.num_out_frames = num_src_frames
         return out
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        # frames cross to the device at source dtype (uint8) and widen there
-        return torch.from_numpy(
-            np.ascontiguousarray(normalize_u8(frames))).to(self.device)
+        # frames cross to the device at source dtype (uint8, or 10-bit
+        # samples as int16) and widen there
+        if self.src_bits > 8:
+            arr = np.ascontiguousarray(frames, np.uint16).view(np.int16)
+        else:
+            arr = np.ascontiguousarray(normalize_u8(frames))
+        return torch.from_numpy(arr).to(self.device)
+
+    def _apply_post(self, out: torch.Tensor, src_indices,
+                    plane_h: int) -> torch.Tensor:
+        """The post chain over float frames [N, H, W], with the QP maps of
+        the output frames' source indices when the chain deblocks."""
+        if getattr(self.post_chain, "wants_qp", False) \
+                and self.qp_source is not None:
+            qp = self.qp_source.maps_for(src_indices)
+            if qp is not None:
+                mbh = qp.shape[1]
+                scale = 2 if plane_h > mbh * 12 else 1  # luma vs 4:2:0 chroma
+                return self.post_chain(
+                    out, qp=torch.from_numpy(qp).to(out.device),
+                    qp_block_scale=scale, src_bits=self.src_bits)
+        return self.post_chain(out, src_bits=self.src_bits)
+
+    def _apply_resize(self, out: torch.Tensor, plane: int) -> torch.Tensor:
+        """Lanczos3 resize to the configured size (chroma: half)."""
+        if self.resize is None:
+            return out
+        w2, h2 = self.resize
+        if plane != 0:
+            w2, h2 = w2 // 2, h2 // 2
+        return resize_lanczos3(out, h2, w2)
+
+    def _finish(self, out: torch.Tensor, src_indices, plane_h: int,
+                plane: int, n_valid: int) -> DeferredBatch:
+        """Post chain, resize, then the rounding to the source depth:
+        uint8, or uint16 (as int16) above 8 bits."""
+        if self.post_chain is not None:
+            out = self._apply_post(out, src_indices, plane_h)
+        out = self._apply_resize(out, plane)
+        mx = (1 << self.src_bits) - 1
+        dt = torch.int16 if self.src_bits > 8 else torch.uint8
+        q = torch.floor(out + 0.5).clamp(0, mx).to(dt)
+        return DeferredBatch(q, n_valid)
 
     def run_kfm_batch(self, frames: np.ndarray, prev_frame,
-                      start_index: int) -> DeferredBatch:
+                      start_index: int, plane: int = 0,
+                      n_real: int | None = None) -> DeferredBatch:
         """Synthesize the VFR output frames whose source index falls in
-        [start_index, start_index + len(frames)) (the KFM pass-3 analog).
+        [start_index, start_index + n_real) (the KFM pass-3 analog).
 
         frames: [B, H, W] source frames (one plane); prev_frame: the source
         frame before `start_index` (None at the sequence head), needed for
-        MERGE_PREV pulldown repair."""
+        MERGE_PREV pulldown repair. n_real < len(frames) marks the trailing
+        rows as padding (repeats of the last frame). With a post chain the
+        output entries are padded to a multiple of 8 with the last one, as
+        the JAX package pads them for its executables: temporal NR then
+        averages the padding into the last real entries, as there."""
         if self.vfr_plan is None:
             raise RuntimeError("run_kfm_batch before analyze()")
-        end_index = start_index + len(frames)
+        end_index = start_index + (len(frames) if n_real is None else n_real)
         entries = [(src, op) for src, op in self.vfr_plan.source_frames
                    if start_index <= src < end_index]
         arr = self._upload(frames)
@@ -241,6 +325,9 @@ class FilterGraph:
             variants[VFRPlan.BOB_T] = bob_field(cur, top=True)
         if VFRPlan.BOB_B in ops_used:
             variants[VFRPlan.BOB_B] = bob_field(cur, top=False)
+        n_entries = len(entries)
+        if self.post_chain is not None:
+            entries = entries + [entries[-1]] * (-n_entries % 8)
         src_idx = torch.tensor([src - start_index for src, _ in entries],
                                device=self.device)
         op_arr = np.asarray([op for _, op in entries])
@@ -248,26 +335,56 @@ class FilterGraph:
         for op in ops_used - {VFRPlan.WEAVE}:
             m = torch.from_numpy(op_arr == op).to(self.device)[:, None, None]
             out = torch.where(m, variants[op][src_idx], out)
-        q = torch.floor(out + 0.5).clamp(0, 255).to(torch.uint8)
-        return DeferredBatch(q, len(entries))
+        return self._finish(out, [src for src, _ in entries], frames.shape[1],
+                            plane, n_entries)
 
-    def run_pass3(self, frames: np.ndarray, prev_frame,
-                  next_frame) -> DeferredBatch:
-        """Filter one batch [B, H, W] -> its output frames (modes none and
-        yadif, one output per source frame). prev/next_frame provide the
-        temporal halo (None at the sequence ends)."""
+    def run_pass3(self, frames: np.ndarray, prev_frame, next_frame,
+                  start_index: int = 0, plane: int = 0) -> DeferredBatch:
+        """Filter one batch [B, H, W] -> its output frames (one per source
+        frame; two, in field order, for yadif60 and qtgmc). prev/next_frame
+        provide the temporal halo (None at the sequence ends); start_index
+        is the batch's first source index (the QP maps' alignment)."""
         arr = self._upload(frames)
-        if self.mode != self.MODE_YADIF:
-            return DeferredBatch(arr, len(arr))
-        # extend the batch with the halo frames so the edge frames see
-        # their true temporal neighbours; the kernel's own batch-edge rule
-        # (prev of frame 0 / next of the last frame is itself) reproduces
-        # the sequence-edge replication
-        first = arr[:1] if prev_frame is None else self._upload(prev_frame[None])
-        last = arr[-1:] if next_frame is None else self._upload(next_frame[None])
-        ext = torch.cat([first, arr, last])
-        out, _ = fused_filter.yadif_fieldmatch(ext, write_frames=True)
-        return DeferredBatch(out[1:-1], len(arr))
+        idx = list(range(start_index, start_index + len(frames)))
+        after = self.post_chain is not None or self.resize is not None
+        if self.mode == self.MODE_NONE:
+            if not after:
+                return DeferredBatch(arr, len(arr))
+            return self._finish(arr.float(), idx, frames.shape[1], plane,
+                                len(arr))
+        first = arr[:1] if prev_frame is None \
+            else self._upload(prev_frame[None])
+        last = arr[-1:] if next_frame is None \
+            else self._upload(next_frame[None])
+        if self.mode == self.MODE_YADIF or (
+                self.mode == self.MODE_YADIF60 and not after):
+            # extend the batch with the halo frames so the edge frames see
+            # their true temporal neighbours; the kernel's own batch-edge
+            # rule (prev of frame 0 / next of the last frame is itself)
+            # reproduces the sequence-edge replication
+            ext = torch.cat([first, arr, last])
+            out = fused_filter.yadif_fieldmatch(ext)[0][1:-1]
+            if self.mode == self.MODE_YADIF60:
+                bottom = fused_filter.yadif_fieldmatch(
+                    ext, parity_top=False)[0][1:-1]
+                out = torch.stack([out, bottom], dim=1).flatten(0, 1)
+            if not after:
+                return DeferredBatch(out, len(out))
+            return self._finish(out.float(), idx, frames.shape[1], plane,
+                                len(out))
+        cur = arr.float()
+        prev = torch.cat([first.float(), cur[:-1]])
+        nxt = torch.cat([cur[1:], last.float()])
+        if self.mode == self.MODE_QTGMC:
+            out = deint_ops.motion_adaptive_bob(prev, cur, nxt, True)
+        else:
+            # Yadifmod2 mode=1 double rate: top field first (TFF)
+            out = torch.stack(
+                [deint_ops.yadif_deinterlace(prev, cur, nxt, True),
+                 deint_ops.yadif_deinterlace(prev, cur, nxt, False)],
+                dim=1).flatten(0, 1)
+        idx = [i for i in idx for _ in range(2)]  # one QP map per field pair
+        return self._finish(out, idx, frames.shape[1], plane, len(out))
 
 
 def normalize_u8(arr: np.ndarray) -> np.ndarray:
@@ -283,6 +400,53 @@ def normalize_u8(arr: np.ndarray) -> np.ndarray:
     return arr.astype(np.uint8)
 
 
+POST_TOKENS = ("deblock", "nr", "deband", "edge")
+
+
+def build_post_chain(spec: str):
+    """The post-filter chain of comma-separated tokens {deblock, nr,
+    deband, edge} (the reference's KDeblock / KTemporalNR / KDeband /
+    KEdgeLevel, Server/Misc.cs:1403-1441), or None for no tokens. Unknown
+    tokens raise ValueError.
+
+    chain(frames, qp=None, qp_block_scale=2, src_bits=8) maps float
+    [B, H, W] frames in the source domain to the same: deblock runs first
+    in the 8-bit domain with per-macroblock QP maps [B, mb_h, mb_w] (8-bit
+    sources only), the rest in the 14-bit domain. deband draws from seed 0
+    with the index of each frame within the batch."""
+    tokens = {t.strip() for t in (spec or "").split(",") if t.strip()}
+    if not tokens:
+        return None
+    unknown = tokens - set(POST_TOKENS)
+    if unknown:
+        raise ValueError(f"unknown post-filter tokens: {sorted(unknown)}")
+
+    def chain(frames, qp=None, qp_block_scale=2, src_bits=8):
+        x = frames
+        if "deblock" in tokens and qp is not None and src_bits == 8:
+            _, h, w = x.shape
+            hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+            if (hp, wp) != (h, w):
+                xp = F.pad(x[:, None], (0, wp - w, 0, hp - h),
+                           mode="replicate")[:, 0]
+                x = denoise.deblock_qp(xp, qp, qp_block_scale=qp_block_scale
+                                       )[:, :h, :w]
+            else:
+                x = denoise.deblock_qp(x, qp, qp_block_scale=qp_block_scale)
+        scale = float(1 << (14 - src_bits))  # ConvertBits(14) at depth
+        x = x.to(torch.float32) * scale
+        if "nr" in tokens:
+            x = denoise.temporal_nr(x)
+        if "deband" in tokens:
+            x = denoise.deband(x, 0)
+        if "edge" in tokens:
+            x = denoise.edge_level(x)
+        return x * (1.0 / scale)  # back to the source domain
+
+    chain.wants_qp = "deblock" in tokens
+    return chain
+
+
 def merge_prev_weave(frames: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """Weave each frame's top field with the PREVIOUS frame's bottom field
     (3:2 pulldown repair for the split telecined frame)."""
@@ -294,14 +458,8 @@ def bob_field(frames: torch.Tensor, top: bool) -> torch.Tensor:
     """Line-double one field to full height: kept lines pass through, the
     missing lines are the average of the adjacent kept lines (edge
     replicated)."""
-    fld = deint_ops.field_split(frames)[0 if top else 1]
-    if top:
-        # missing (odd) line k sits between kept k and k+1
-        nxt = torch.cat([fld[:, 1:], fld[:, -1:]], dim=1)
-        return deint_ops.weave(fld, (fld + nxt) * 0.5)
-    # missing (even) line k sits between kept k-1 and k
-    prv = torch.cat([fld[:, :1], fld[:, :-1]], dim=1)
-    return deint_ops.weave((prv + fld) * 0.5, fld)
+    return deint_ops.bob_field(deint_ops.field_split(frames)[0 if top else 1],
+                               top)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,13 @@
 //                           max(prev[2y+1], next[2y+1]))
 //   spatial = the 5-direction edge-directed average of cur[2y] and cur[2y+2]
 //   (cur[2y] again on the last field row), columns edge-replicated.
+// With the bottom field kept (frames only: no costs, no erase), the rows
+// swap roles: odd rows 2y+1 are cur[2y+1], even rows 2y are rebuilt from
+// cur[2y-1] above (cur[1] again on the first field row) and cur[2y+1]
+// below, clamped by prev[2y] and next[2y]. The direction search takes
+// `above` and `below` in that order, as ops.deint.yadif_deinterlace(...,
+// parity_top=False) does: its ties go as there (a vertical flip of the
+// top-field branch would break them the other way).
 // Costs: for each frame the three combing sums of ops.deint.field_match_costs
 // (cur/cur, cur top with prev bottom, prev top with cur bottom), taken over
 // odd field rows y < H/2-1 and even field rows y >= 1.
@@ -147,6 +154,7 @@ struct Params {
   int n_tiles;     // field-row tiles per frame
   int box_tile0;   // first tile whose rows meet the box
   int box_tiles;   // number of such tiles
+  int bottom;      // keep the bottom field (frames only)
 };
 
 struct Row {
@@ -264,26 +272,37 @@ __device__ __forceinline__ Row load_word(const Params& p, int f, int r, int c,
 
 // What field row y adds to a thread's window: top[y+1] of the current and
 // the previous frame, bottom[y] of the previous, current and next frame.
+// With the bottom field kept (TOP false) t1 is bottom[y] of the current
+// frame (the kept row below the rebuilt row 2y) and pb0/nb0 are top[y] of
+// the previous and next frame (the rebuilt row's temporal taps).
 struct NewRows {
   Row t1, pt1, pb0, b0, nb0;
 };
 
-template <bool FRAMES, bool COSTS, bool ERASE, bool VEC>
+// The kept row above the rebuilt row of field row y (frame rows).
+template <bool TOP>
+__device__ __forceinline__ int kept_above(int y) {
+  return TOP ? 2 * y : 2 * max(y - 1, 0) + 1;
+}
+
+template <bool FRAMES, bool COSTS, bool ERASE, bool VEC, bool TOP>
 __device__ __forceinline__ NewRows load_rows(const Params& p, int f, int fp,
                                              int fn, int y, int c,
                                              bool erase) {
   NewRows n = {};
   const int r = 2 * y;
-  const bool below = y + 1 < p.height / 2;
+  const bool below = !TOP || y + 1 < p.height / 2;
+  const int r_keep = TOP ? r + 2 : r + 1;  // the kept row below
+  const int r_miss = TOP ? r + 1 : r;      // the rebuilt row
   // top rows keep the replicated edge when frames are rebuilt from them
   constexpr bool kTopZero = !FRAMES;
   if (below) {
-    n.t1 = load_raw<VEC, kTopZero>(p, f, r + 2, c);
+    n.t1 = load_raw<VEC, kTopZero>(p, f, r_keep, c);
     if (COSTS) n.pt1 = load_raw<VEC, true>(p, fp, r + 2, c);
   }
-  n.pb0 = load_raw<VEC, COSTS>(p, fp, r + 1, c);
+  n.pb0 = load_raw<VEC, COSTS>(p, fp, r_miss, c);
   if (COSTS) n.b0 = load_raw<VEC, true>(p, f, r + 1, c);
-  if (FRAMES) n.nb0 = load_raw<VEC, COSTS>(p, fn, r + 1, c);
+  if (FRAMES) n.nb0 = load_raw<VEC, COSTS>(p, fn, r_miss, c);
   if (ERASE && erase) {
     if (below) {
       erase_word(p, n.t1, f, r + 2, c, kTopZero);
@@ -440,19 +459,26 @@ __device__ __forceinline__ unsigned long long block_sum(
 // variants with cost sums need about 100 and slow down when squeezed below;
 // the one that does everything (frames, costs, erase) spills at 128, so its
 // blocks are held to 192 threads and it gets 168; the byte-load variants
-// would spill at 128 too and are left alone.
+// would spill at 128 too and are left alone. The 16-byte frames-only variant
+// that keeps the bottom field gets 85 (four blocks of 192 threads), and the
+// 16-byte frames + erase variant (no path launches it) is left alone: since
+// the kernel took the parity as a template argument, ptxas for sm_90a
+// spilled 4 bytes in it at 128 registers.
 constexpr int kMaxThreadsAll = 192;  // frames + costs + erase
 constexpr int max_threads(bool frames, bool costs, bool erase) {
   return frames && costs && erase ? kMaxThreadsAll : kMaxThreads;
 }
-constexpr int min_blocks(bool costs, bool erase, bool vec) {
-  return !vec ? 1 : ((!costs && !erase) ? 4 : 2);
+constexpr int min_blocks(bool costs, bool erase, bool vec, bool top) {
+  if (!vec || (erase && !costs)) return 1;
+  return (!costs && !erase) ? (top ? 4 : 3) : 2;
 }
 
-template <bool FRAMES, bool COSTS, bool ERASE, bool VEC>
+template <bool FRAMES, bool COSTS, bool ERASE, bool VEC, bool TOP = true>
 __global__ void __launch_bounds__(max_threads(FRAMES, COSTS, ERASE),
-                                  min_blocks(COSTS, ERASE, VEC))
+                                  min_blocks(COSTS, ERASE, VEC, TOP))
 yadif_fieldmatch_kernel(const Params p) {
+  static_assert(TOP || (FRAMES && !COSTS && !ERASE),
+                "the bottom field is kept in the frames-only mode alone");
   int tile = blockIdx.x;
   int f = blockIdx.y;
   bool tile_meets_box = false;
@@ -505,7 +531,7 @@ yadif_fieldmatch_kernel(const Params p) {
     constexpr bool kTopZero = !FRAMES;
     if (owns) {
       const int r = 2 * y_first;
-      t0 = load_raw<VEC, kTopZero>(p, f, r, c);
+      t0 = load_raw<VEC, kTopZero>(p, f, kept_above<TOP>(y_first), c);
       if (COSTS) {
         pt0 = load_raw<VEC, true>(p, fp, r, c);
         if (y_first >= 1) {
@@ -531,24 +557,25 @@ yadif_fieldmatch_kernel(const Params p) {
       }
     }
     if (FRAMES) {
-      aprons<VEC, ERASE>(p, t0, f, 2 * y_first, c, owns, tile_meets_box, t0l,
-                         t0r);
+      aprons<VEC, ERASE>(p, t0, f, kept_above<TOP>(y_first), c, owns,
+                         tile_meets_box, t0l, t0r);
     }
 
     for (int i = 0; i < p.rows_per_strip; ++i) {
       const int y = y_first + i;
       const int r = 2 * y;
       const bool act = owns && y < y_end;
-      const bool below = y + 1 < fh;  // else: below = the kept row itself
+      // else: below = the kept row itself (the top field's last row)
+      const bool below = !TOP || y + 1 < fh;
       NewRows cur = {};
       if (act) {
-        cur = load_rows<FRAMES, COSTS, ERASE, VEC>(p, f, fp, fn, y, c,
-                                                   tile_meets_box);
+        cur = load_rows<FRAMES, COSTS, ERASE, VEC, TOP>(p, f, fp, fn, y, c,
+                                                        tile_meets_box);
         if (!below) cur.t1 = t0;
       }
       if (FRAMES) {
-        aprons<VEC, ERASE>(p, cur.t1, f, r + 2, c, act && below,
-                           tile_meets_box, t1l, t1r);
+        aprons<VEC, ERASE>(p, cur.t1, f, TOP ? r + 2 : r + 1, c,
+                           act && below, tile_meets_box, t1l, t1r);
         if (act && !below) {
           t1l = t0l;
           t1r = t0r;
@@ -559,8 +586,10 @@ yadif_fieldmatch_kernel(const Params p) {
           const uint32_t A[6] = {t0l, t0.w[0], t0.w[1], t0.w[2], t0.w[3], t0r};
           const uint32_t C[6] = {t1l,         cur.t1.w[0], cur.t1.w[1],
                                  cur.t1.w[2], cur.t1.w[3], t1r};
-          store_word(p, f, r, c, t0);
-          store_word(p, f, r + 1, c, rebuild(A, C, cur.pb0, cur.nb0));
+          // the kept row first, then the rebuilt one
+          store_word(p, f, TOP ? r : r + 1, c, TOP ? t0 : cur.t1);
+          store_word(p, f, TOP ? r + 1 : r, c,
+                     rebuild(A, C, cur.pb0, cur.nb0));
         }
         if (COSTS) {
           const Row t0c = for_costs(t0);
@@ -616,6 +645,18 @@ yadif_fieldmatch_kernel(const Params p) {
 template <bool FRAMES, bool COSTS>
 void launch(bool erase, bool vec, dim3 grid, int threads, cudaStream_t stream,
             const Params& p) {
+  if constexpr (FRAMES && !COSTS) {
+    if (p.bottom) {  // the host checked: no erase
+      if (vec) {
+        yadif_fieldmatch_kernel<true, false, false, true, false>
+            <<<grid, threads, 0, stream>>>(p);
+      } else {
+        yadif_fieldmatch_kernel<true, false, false, false, false>
+            <<<grid, threads, 0, stream>>>(p);
+      }
+      return;
+    }
+  }
   if (erase && vec) {
     yadif_fieldmatch_kernel<FRAMES, COSTS, true, true>
         <<<grid, threads, 0, stream>>>(p);
@@ -640,6 +681,8 @@ bool aligned16(const void* ptr) {
 // src: [batch, height, width] uint8 with the given frame and row strides
 // (elements); out: contiguous [batch, height, width] uint8 or null;
 // partials: [ceil(height/2 / tile_rows), batch, 3] int64 or null.
+// parity_top: 1 keeps the top field, 0 the bottom one (then partials and
+// the erase box must be null).
 // threads (a multiple of 32, at most 256, or 192 with out, partials and the
 // erase all at once) and strips (row strips per block)
 // are the block layout: strips * ceil(width/16) <= threads, or strips == 1
@@ -652,7 +695,11 @@ extern "C" int amt_yadif_fieldmatch(
     int height, int width, void* out, void* partials, int tile_rows,
     int strips, int threads, const void* a_box, const void* b_box,
     const void* fades, int box_y0, int box_x0, int box_h, int box_w,
-    float maxv, void* stream) {
+    float maxv, int parity_top, void* stream) {
+  if (!parity_top && (out == nullptr || partials != nullptr ||
+                      a_box != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (batch < 1 || height < 2 || width < 1 || tile_rows < 1 || strips < 1 ||
       strips > tile_rows || threads < 32 ||
       threads > max_threads(out != nullptr, partials != nullptr,
@@ -689,6 +736,7 @@ extern "C" int amt_yadif_fieldmatch(
   p.box_h = box_h;
   p.box_w = box_w;
   p.maxv = maxv;
+  p.bottom = parity_top ? 0 : 1;
   const bool vec = aligned16(src) && frame_stride % kWord == 0 &&
                    row_stride % kWord == 0;
   const bool erase = a_box != nullptr;

@@ -1,7 +1,8 @@
 """Deinterlace / telecine-detection tensor ops (plain PyTorch).
 
-Counterpart of amatsukaze_tpu/ops/deint.py, cut to what the slice runs:
-field split / weave, yadif, the field-match costs and the per-cycle
+Counterpart of amatsukaze_tpu/ops/deint.py, cut to what the port runs:
+field split / weave, bob, yadif (either field kept), the motion-adaptive
+double-rate bob of the qtgmc mode, the field-match costs and the per-cycle
 pattern aggregation. The same math as the JAX functions, on [B, H, W]
 tensors. ops.fused_filter's plain version is built from these; its CUDA
 kernel computes the same function in one pass.
@@ -77,6 +78,93 @@ def yadif_deinterlace(prev: torch.Tensor, cur: torch.Tensor,
     recon = torch.minimum(torch.maximum(spatial, temporal - diff),
                           temporal + diff)
     return weave(keep, recon) if parity_top else weave(recon, keep)
+
+
+def bob_field(field: torch.Tensor, parity_top: bool) -> torch.Tensor:
+    """Linear bob of one field [B, H/2, W] to a frame [B, H, W]: the field
+    on the even lines (parity_top) or the odd ones, each missing line the
+    average of the field lines around it (edge replicated)."""
+    nxt = torch.cat([field[:, 1:], field[:, -1:]], dim=1)
+    prv = torch.cat([field[:, :1], field[:, :-1]], dim=1)
+    if parity_top:
+        return weave(field, (field + nxt) * 0.5)
+    return weave((field + prv) * 0.5, field)
+
+
+# ---------------------------------------------------------------------------
+# motion-adaptive double-rate deinterlace (the qtgmc mode)
+# ---------------------------------------------------------------------------
+
+def _dilate3x3(m: torch.Tensor) -> torch.Tensor:
+    """3x3 max filter over [B, H, W] (edge replicated)."""
+    mh = torch.maximum(m, torch.maximum(_shift_cols(m, 1), _shift_cols(m, -1)))
+    up = torch.cat([mh[:, :1], mh[:, :-1]], dim=1)
+    dn = torch.cat([mh[:, 1:], mh[:, -1:]], dim=1)
+    return torch.maximum(mh, torch.maximum(up, dn))
+
+
+def _mc_temporal(tp: torch.Tensor, tn: torch.Tensor,
+                 max_shift: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """Motion-compensated temporal candidate from the same-parity fields
+    before (tp) and after (tn): for each symmetric horizontal shift s, tp
+    shifted +s averaged with tn shifted -s; the shift with the lowest
+    match error wins (strict '<', in the JAX package's order). Returns
+    (candidate, match error)."""
+    best = (tp + tn) * 0.5
+    best_err = (tp - tn).abs()
+    for s in range(1, max_shift + 1):
+        for sgn in (1, -1):
+            a = _shift_cols(tp, sgn * s)
+            c = _shift_cols(tn, -sgn * s)
+            err = (a - c).abs()
+            better = err < best_err
+            best = torch.where(better, (a + c) * 0.5, best)
+            best_err = torch.where(better, err, best_err)
+    return best, best_err
+
+
+def motion_adaptive_bob(prev: torch.Tensor, cur: torch.Tensor,
+                        nxt: torch.Tensor, tff: bool = True,
+                        thresh_low: float = 4.0,
+                        thresh_high: float = 12.0) -> torch.Tensor:
+    """Double-rate deinterlace: [B, H, W] interlaced frames -> [2B, H, W]
+    progressive frames, one per field in field order. Static areas weave
+    the temporally bracketing opposite field; moving areas take the
+    edge-directed spatial prediction clamped to the motion-compensated
+    temporal candidate; a dilated per-pixel motion measure blends the two.
+    (XLA on the CPU contracts the blend into fused multiply-adds, so the
+    JAX package's values differ from these in the last float bits.)"""
+    cur_t, cur_b = field_split(cur)
+    prev_t, prev_b = field_split(prev)
+    nxt_t, nxt_b = field_split(nxt)
+
+    def recon(keep, weave_cand, tp, tn, motion, parity_top):
+        if parity_top:
+            above = keep
+            below = torch.cat([keep[:, 1:], keep[:, -1:]], dim=1)
+        else:
+            above = torch.cat([keep[:, :1], keep[:, :-1]], dim=1)
+            below = keep
+        spatial = _spatial_pred(above, below)
+        mc, err = _mc_temporal(tp, tn)
+        moving = torch.minimum(torch.maximum(spatial, mc - err), mc + err)
+        m = _dilate3x3(motion)
+        w = ((thresh_high - m) / (thresh_high - thresh_low)).clamp(0.0, 1.0)
+        return w * weave_cand + (1.0 - w) * moving
+
+    if tff:
+        # field order: top (time k), then bottom (time k + 0.5)
+        first = weave(cur_t, recon(cur_t, cur_b, prev_b, cur_b,
+                                   (prev_b - cur_b).abs(), True))
+        second = weave(recon(cur_b, (cur_t + nxt_t) * 0.5, cur_t, nxt_t,
+                             (cur_t - nxt_t).abs(), False), cur_b)
+    else:
+        first = weave(recon(cur_b, cur_t, prev_t, cur_t,
+                            (prev_t - cur_t).abs(), False), cur_b)
+        second = weave(cur_t, recon(cur_t, (cur_b + nxt_b) * 0.5, cur_b,
+                                    nxt_b, (cur_b - nxt_b).abs(), True))
+    b, h, w = cur.shape
+    return torch.stack([first, second], dim=1).reshape(2 * b, h, w)
 
 
 def combing_metric_fields(top: torch.Tensor,

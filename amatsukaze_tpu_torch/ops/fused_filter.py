@@ -8,7 +8,9 @@ hand-written CUDA kernel, csrc/yadif_fieldmatch.cu, takes the logical frame
 through its row stride (16-byte accesses where the pointers and strides
 allow them, byte accesses otherwise), with flags for what to write:
 
-- ``write_frames``: the yadif output (top field kept, bottom rebuilt);
+- ``write_frames``: the yadif output (top field kept, bottom rebuilt; or,
+  with ``parity_top=False``, the bottom field kept and the top rebuilt,
+  frames only: the field-match costs are defined on the top field);
 - ``with_costs``: the three field-match costs per frame, [B, 3];
 - ``erase``: a logo box erased as the pixels are loaded (fused_logo).
 
@@ -117,21 +119,25 @@ def _kernel():
         fn = lib.amt_yadif_fieldmatch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, ll, ll, i, i, i, p, p, i, i, i, p, p, p, i, i, i, i,
-                       ctypes.c_float, p]
+                       ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def mode_name(write_frames: bool, with_costs: bool, erase) -> str:
-    """Launch-count key: 'yadif', 'costs' or 'yadif+costs', '+erase'."""
+def mode_name(write_frames: bool, with_costs: bool, erase,
+              parity_top: bool = True) -> str:
+    """Launch-count key: 'yadif', 'costs' or 'yadif+costs', '+erase';
+    'yadif_bottom' with the bottom field kept."""
+    if not parity_top:
+        return "yadif_bottom"
     parts = [n for n, on in (("yadif", write_frames), ("costs", with_costs),
                              ("erase", erase is not None)) if on]
     return "+".join(parts)
 
 
 def _check(frames: torch.Tensor, write_frames: bool, with_costs: bool,
-           erase: EraseBox | None) -> None:
+           erase: EraseBox | None, parity_top: bool = True) -> None:
     if frames.dim() != 3 or frames.dtype != torch.uint8:
         raise ValueError(f"frames must be uint8 [B, H, W], got "
                          f"{frames.dtype} {tuple(frames.shape)}")
@@ -144,6 +150,10 @@ def _check(frames: torch.Tensor, write_frames: bool, with_costs: bool,
     if not (write_frames or with_costs):
         raise ValueError("nothing to compute: write_frames and with_costs "
                          "are both off")
+    if not parity_top and (with_costs or erase is not None
+                           or not write_frames):
+        raise ValueError("parity_top=False is the frames-only mode: no "
+                         "costs and no erase")
     if erase is None:
         return
     bh, bw = erase.a.shape
@@ -162,7 +172,7 @@ def _check(frames: torch.Tensor, write_frames: bool, with_costs: bool,
 
 def launch_kernel(frames: torch.Tensor, out: torch.Tensor | None,
                   partials: torch.Tensor | None,
-                  erase: EraseBox | None) -> None:
+                  erase: EraseBox | None, parity_top: bool = True) -> None:
     """Enqueue the CUDA kernel on the current stream: `out` contiguous uint8
     [B, H, W] or None, `partials` contiguous int64
     [tile_count(H, tile_rows_for(True)), B, 3] or None (already checked
@@ -188,20 +198,24 @@ def launch_kernel(frames: torch.Tensor, out: torch.Tensor | None,
                        b, h, w,
                        None if out is None else out.data_ptr(),
                        None if partials is None else partials.data_ptr(),
-                       tile_rows, strips, threads, *box, stream)
+                       tile_rows, strips, threads, *box, int(parity_top),
+                       stream)
     if rc != 0:
         raise RuntimeError(
             f"yadif_fieldmatch kernel launch failed (CUDA error {rc})")
 
 
 def yadif_fieldmatch(frames: torch.Tensor, *, write_frames: bool = True,
-                     with_costs: bool = False, erase: EraseBox | None = None):
+                     with_costs: bool = False, erase: EraseBox | None = None,
+                     parity_top: bool = True):
     """frames uint8 [B, H, W] (H even; rows may be strided) ->
-    (filtered uint8 [B, H, W] or None, costs float32 [B, 3] or None)."""
-    _check(frames, write_frames, with_costs, erase)
+    (filtered uint8 [B, H, W] or None, costs float32 [B, 3] or None).
+    parity_top=False keeps the bottom field (frames only)."""
+    _check(frames, write_frames, with_costs, erase, parity_top)
     if not frames.is_cuda:
         return yadif_fieldmatch_plain(frames, write_frames=write_frames,
-                                      with_costs=with_costs, erase=erase)
+                                      with_costs=with_costs, erase=erase,
+                                      parity_top=parity_top)
     b, h, w = frames.shape
     dev = frames.device
     out = (torch.empty((b, h, w), dtype=torch.uint8, device=dev)
@@ -209,8 +223,9 @@ def yadif_fieldmatch(frames: torch.Tensor, *, write_frames: bool = True,
     n_tiles = tile_count(h, tile_rows_for(with_costs))
     partials = (torch.empty((n_tiles, b, 3), dtype=torch.int64, device=dev)
                 if with_costs else None)
-    launch_kernel(frames, out, partials, erase)
-    yadif_fieldmatch.launches[mode_name(write_frames, with_costs, erase)] += 1
+    launch_kernel(frames, out, partials, erase, parity_top)
+    yadif_fieldmatch.launches[
+        mode_name(write_frames, with_costs, erase, parity_top)] += 1
     costs = None
     if with_costs:
         # the tiles' integer sums, exact in float64 (far below 2^53), then
@@ -226,7 +241,8 @@ yadif_fieldmatch.launches = Counter()
 
 def yadif_fieldmatch_plain(frames: torch.Tensor, *, write_frames: bool = True,
                            with_costs: bool = False,
-                           erase: EraseBox | None = None):
+                           erase: EraseBox | None = None,
+                           parity_top: bool = True):
     """The plain PyTorch version of the kernel (same arguments, same
     results): box erase with ops.logo.batched_delogo, yadif with
     ops.deint.yadif_deinterlace, costs with ops.deint.field_match_costs
@@ -245,7 +261,7 @@ def yadif_fieldmatch_plain(frames: torch.Tensor, *, write_frames: bool = True,
         cur = x.float()
         prev = torch.cat([cur[:1], cur[:-1]])
         nxt = torch.cat([cur[1:], cur[-1:]])
-        y = deint.yadif_deinterlace(prev, cur, nxt, True)
+        y = deint.yadif_deinterlace(prev, cur, nxt, parity_top)
         out = torch.floor(y + 0.5).clamp(0, MAXV).to(torch.uint8)
     if with_costs:
         costs = deint.field_match_costs(x.to(torch.int64))

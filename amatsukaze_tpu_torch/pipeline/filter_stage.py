@@ -3,10 +3,12 @@ synthesis, fed by the CM analysis pass or by a logo pass of its own.
 
 Counterpart of the filter part of amatsukaze_tpu/pipeline/transcode.py:
 `_encode_one` (:839-956: the erase entries, LogoEraser, FilterGraph
-analyze with the frame spill, output_spec, the filter dump, the v2
-timecode file, the CM zones through make_out_zones) and `_pump_filtered`
-(per-plane batches through the filter graph). The filtered frames go to a
-caller-supplied sink instead of an encoder pump.
+analyze with the frame spill, the post chain, its QP maps and the resize,
+output_spec, the filter dump, the v2 timecode file, the CM zones through
+make_out_zones), the 10-bit rule of the encode feed (:1166-1192) and
+`_pump_filtered` (per-plane batches through the filter graph, padded to
+the batch as there). The filtered frames go to a caller-supplied sink
+instead of an encoder pump.
 
     cm = run_cm_analysis(ctx, open_frames, num_frames, fmt, logos)
     result = run_filter_stage(ctx, open_frames, num_frames, fmt, logos,
@@ -24,10 +26,17 @@ file's frames. The passes over it:
   otherwise decodes and erases again, as the JAX pipeline does.
 
 So with the spill a KFM output file costs one decode and one erase.
+
+10-bit sources (uint16 planes): mode "none" without a logo to erase keeps
+the 10 bits (the Main10 case: a post chain and the resize run from and to
+10 bits and the sink gets uint16 planes; with neither, the planes pass
+through). Every other graph filters the rounded 8-bit downconvert
+((x + 2) >> 2).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -35,11 +44,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..models.filter_graph import (FilterGraph, FilterOutput, make_out_zones,
+from ..models.filter_graph import (FilterGraph, FilterOutput,
+                                   build_post_chain, make_out_zones,
                                    normalize_u8)
 from ..models.logo import LogoFrameMatcher
 from ..models.logo_erase import LogoEraser
 from ..models.vfr import EncoderZone
+from ..utils.batching import pad_tail
 from .cm_stage import FADE_STEPS, FADE_STEPS_NO_DELOGO, luma_pass
 
 HEAD_RAMP = 8  # frames of the first chunk of the output pass
@@ -126,9 +137,11 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
                      cm=None, erase_logos=(), cm_zones_mode: str = "both",
                      analysis_cache_bytes: int | None = None,
                      timecode_path: str | None = None,
-                     dump_path: str | None = None) -> FilterStageResult:
+                     dump_path: str | None = None, post_filter: str = "",
+                     qp_source=None, resize=None) -> FilterStageResult:
     """Run the filter core over one output file and call `sink((y, u, v))`
-    with every output frame (uint8 planes), in order.
+    with every output frame (uint8 planes; uint16 on the 10-bit path), in
+    order.
 
     cm: the file's CMStageResult (pipeline/cm_stage.run_cm_analysis). Its
     best logo is erased with its fade curve (none when it ran under
@@ -143,9 +156,15 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     analysis_cache_bytes: the spill's cap (default analysis_cache_cap()).
     timecode_path / dump_path: write the v2 timecode file (VFR output
     only) / the filter graph's debug_dump JSON there.
-    `kfm_ucf` is FilterGraph.kfm_ucf."""
+    `kfm_ucf` is FilterGraph.kfm_ucf.
+    post_filter: the post chain's tokens, comma-separated ("deblock", "nr",
+    "deband", "edge"; models.filter_graph.build_post_chain; unknown tokens
+    raise ValueError). qp_source: a ts.qp_extract.QpMapSource of the
+    file's frames for "deblock" (without one, deblock is skipped). resize:
+    the output (width, height), a Lanczos3 resize after the chain."""
     if cm_zones_mode not in CM_ZONES_MODES:
         raise ValueError(f"cm_zones_mode must be one of {CM_ZONES_MODES}")
+    post_chain = build_post_chain(post_filter)
     seconds = {}
     t0 = time.perf_counter()
     entries = []
@@ -179,7 +198,10 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
         return (tuple(normalize_u8(p) for p in planes) for planes in src)
 
     t0 = time.perf_counter()
-    fg = FilterGraph(ctx, mode=mode, batch=batch, device=device)
+    fg = FilterGraph(ctx, mode=mode, batch=batch, device=device,
+                     post_chain=post_chain, qp_source=qp_source)
+    if resize is not None:
+        fg.resize = tuple(resize)
     fg.kfm_ucf = kfm_ucf
     spill = None
     if fg.mode in FilterGraph.KFM_FAMILY:
@@ -215,8 +237,30 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
                                fmt.frame_rate_num, fmt.frame_rate_denom)
 
     t0 = time.perf_counter()
-    src = iter(spill.frames) if spill is not None else filtered_frames()
-    n_out = pump_filtered(fg, src, sink, batch)
+    if spill is not None:
+        src = iter(spill.frames)
+    else:
+        src = iter(open_frames())
+        first = next(src, None)
+        src = itertools.chain(() if first is None else (first,), src)
+        if (first is not None and first[0].dtype == np.uint16 and not eraser
+                and fg.mode == FilterGraph.MODE_NONE):
+            # Main10: the chain and the resize run from and to 10 bits;
+            # without either the planes pass through
+            if fg.post_chain is not None or fg.resize is not None:
+                fg.src_bits = 10
+        elif eraser:
+            src = eraser.erase_iter(src, batch)
+        else:
+            src = (tuple(normalize_u8(p) for p in planes) for planes in src)
+    if (fg.mode == FilterGraph.MODE_NONE and fg.post_chain is None
+            and fg.resize is None):
+        n_out = 0
+        for planes in src:  # nothing to filter: straight to the sink
+            sink(planes)
+            n_out += 1
+    else:
+        n_out = pump_filtered(fg, src, sink, batch)
     seconds["output"] = time.perf_counter() - t0
     return FilterStageResult(matcher, best, fade, fg, spec, n_out, zones,
                              len(spill.frames) if spill is not None else 0,
@@ -227,7 +271,14 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
     """Batch the frames through the filter graph, per plane (Y/U/V run the
     same ops at their own resolutions), and feed the sink. Batch k is
     fetched from the device only after batch k+1's work is enqueued.
-    Returns the number of frames handed to the sink."""
+    Returns the number of frames handed to the sink.
+
+    Batches as the JAX package's `_pump_filtered` does, since the post
+    chain sees whole batches: every chunk is padded to `batch` frames with
+    repeats of its last one (only the real frames' outputs are emitted);
+    the first chunk is a head ramp of 8 frames whose next frame is the
+    frame after it (the padding stands between them); `start_index` runs
+    on for the QP maps."""
     buf: list = []
     prev_planes = None  # last source frame of the previous batch
     start = 0
@@ -247,13 +298,18 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
             return
         outs = []
         for p in range(3):
-            arr = np.stack([f[p] for f in chunk])
+            arr, n_real = pad_tail([f[p] for f in chunk], batch)
             prev = None if prev_planes is None else prev_planes[p]
             if fg.mode in FilterGraph.KFM_FAMILY:
-                outs.append(fg.run_kfm_batch(arr, prev, start))
-            else:
-                outs.append(fg.run_pass3(
-                    arr, prev, None if next_planes is None else next_planes[p]))
+                outs.append(fg.run_kfm_batch(arr, prev, start, plane=p,
+                                             n_real=n_real))
+                continue
+            res = fg.run_pass3(
+                arr, prev, None if next_planes is None else next_planes[p],
+                start_index=start, plane=p)
+            # one output per frame, two for the double-rate modes
+            res.n = n_real * (len(res) // len(arr))
+            outs.append(res)
         prev_planes = chunk[-1]
         start += len(chunk)
         if pending is not None:
@@ -261,16 +317,13 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
         pending = outs
 
     # head ramp: a small first chunk, so that the consumer starts after
-    # HEAD_RAMP frames instead of a full batch. The reference pads that
-    # chunk to the batch size with copies of its last frame before the halo
-    # frame goes on, so that frame's next frame is itself; passing no next
-    # frame gives the same output.
+    # HEAD_RAMP frames instead of a full batch
     ramp = min(HEAD_RAMP, batch)
     for planes in frames_iter:
         buf.append(planes)
         if start == 0 and pending is None and ramp < batch \
                 and len(buf) > ramp:
-            flush(buf[:ramp], None)
+            flush(buf[:ramp], buf[ramp])
             buf = buf[ramp:]
         elif len(buf) > batch:  # keep one lookahead frame (yadif halo)
             flush(buf[:batch], buf[batch])

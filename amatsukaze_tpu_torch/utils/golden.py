@@ -163,3 +163,158 @@ def load_cm() -> dict:
 def save_cm(clips: dict, meta: dict) -> None:
     CM_PATH.write_text(json.dumps({"meta": meta, "clips": clips},
                                   separators=(",", ":")) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# the post chain, resize, 10-bit and double-rate paths of the filter stage
+# (testdata/golden_post.npz)
+# ---------------------------------------------------------------------------
+
+POST_PATH = PATH.parent / "golden_post.npz"
+POST_CLIP = "small"
+POST_BATCH = 16  # more than the head ramp's 8 frames: that chunk is padded
+QP_SEED = 5
+# name -> the stage's mode and what follows it; "bits": 10 feeds the clip
+# as 10-bit samples (synth_clip.to_10bit) with no logo to erase. "exact":
+# the port's plain version gives the JAX package's frames bit for bit
+# (every op of the path is bit-equal, and no rounding tie happens to fall
+# on these frames), so the record keeps one digest per frame and a run
+# must match it exactly; the others keep the frames themselves, since a
+# run may differ from them by the rules below.
+POST_CONFIGS = {
+    "yadif_chain_resize": dict(mode="yadif",
+                               post_filter="deblock,nr,deband,edge",
+                               qp=True, resize=True, flips=True),
+    "kfm_vfr_chain": dict(mode="kfm_vfr", post_filter="deblock,nr", qp=True),
+    "yadif60": dict(mode="yadif60", exact=True),
+    "qtgmc_nr": dict(mode="qtgmc", post_filter="nr", exact=True),
+    "none_10bit": dict(mode="none", post_filter="nr,deband,edge", bits=10,
+                       exact=True),
+}
+# samples one code value apart (float rounding ties of the ops that are not
+# bit-equal: deblock, edge level, resize, the motion-adaptive blend) may be
+# at most this share of a configuration's output samples
+POST_TIE_SHARE = 1e-3
+# A chain where deblock (its DCT sums run in another order than XLA's) feeds
+# the hard tests of temporal NR and edge level ("flips": True) also has
+# samples further apart: a last-bit difference in a deblocked value can turn
+# edge level's gradient test or NR's motion guard the other way. At most
+# this share of the samples, each at most POST_FLIP_MAX code values apart.
+POST_FLIP_SHARE = 1e-4
+POST_FLIP_MAX = 8
+
+
+def resize_for(h: int, w: int) -> tuple[int, int]:
+    """The resize target (width, height) of an h x w source: 1440x1080 ->
+    1280x720, the 720p downscale of a 1080i broadcast."""
+    return (w * 8 // 9 // 2 * 2, h * 2 // 3 // 2 * 2)
+
+
+def post_stage_inputs(name: str, frames: list, logos: list):
+    """(frames, logos, run_filter_stage keyword arguments) of one
+    configuration of POST_CONFIGS over a clip of (Y, U, V) uint8 frames."""
+    from ..ts.qp_extract import QpMapSource
+    from . import synth_clip
+
+    cfg = POST_CONFIGS[name]
+    h, w = frames[0][0].shape
+    kw = dict(mode=cfg["mode"], post_filter=cfg.get("post_filter", ""))
+    if cfg.get("qp"):
+        kw["qp_source"] = QpMapSource(synth_clip.qp_maps(
+            len(frames), QP_SEED, -(-h // 16), -(-w // 16)))
+    if cfg.get("resize"):
+        kw["resize"] = resize_for(h, w)
+    if cfg.get("bits") == 10:
+        frames, logos = synth_clip.to_10bit(frames, QP_SEED), []
+    return frames, logos, kw
+
+
+def stack_planes(frames: list) -> list:
+    """Output frames [(Y, U, V)] -> [Y [N, h, w], U, V]."""
+    return [np.stack([f[p] for f in frames]) for p in range(3)]
+
+
+def assert_post_matches(got: list, want: list, what: str,
+                        flips: bool = False) -> tuple[int, int]:
+    """Two runs' stacked planes (stack_planes): equal, or one code value
+    apart on at most POST_TIE_SHARE of the samples (and, with `flips`,
+    up to POST_FLIP_MAX apart on at most POST_FLIP_SHARE of them). Returns
+    the numbers of samples one and more than one code value apart."""
+    if [g.shape for g in got] != [x.shape for x in want] or any(
+            g.dtype != x.dtype for g, x in zip(got, want)):
+        raise AssertionError(
+            f"{what}: planes {[(g.shape, g.dtype) for g in got]} against "
+            f"{[(x.shape, x.dtype) for x in want]}")
+    n_one = n_more = n_all = 0
+    for g, x in zip(got, want):
+        d = np.abs(g.astype(np.int32) - x.astype(np.int32))
+        worst = int(d.max(initial=0))
+        if worst > (POST_FLIP_MAX if flips else 1):
+            raise AssertionError(f"{what}: a sample differs by {worst}")
+        n_one += int(np.count_nonzero(d == 1))
+        n_more += int(np.count_nonzero(d > 1))
+        n_all += d.size
+    if n_one > POST_TIE_SHARE * n_all or n_more > POST_FLIP_SHARE * n_all:
+        raise AssertionError(f"{what}: {n_one} of {n_all} samples one code "
+                             f"value apart, {n_more} more")
+    return n_one, n_more
+
+
+def post_digests(frames: list) -> list[str]:
+    """blake2b-128 of each output frame's planes, uint8 or uint16."""
+    out = []
+    for planes in frames:
+        h = hashlib.blake2b(digest_size=16)
+        for p in planes:
+            h.update(p.dtype.str.encode())
+            h.update(np.ascontiguousarray(p).data)
+        out.append(h.hexdigest())
+    return out
+
+
+def assert_post_record(frames: list, record, name: str) -> tuple[int, int]:
+    """A run's output frames against the recorded ones of configuration
+    `name` (load_post): digests equal for an exact configuration, else
+    assert_post_matches. Returns its counts ((0, 0) when exact)."""
+    cfg = POST_CONFIGS[name]
+    if cfg.get("exact"):
+        got = post_digests(frames)
+        bad = [k for k, (a, b) in enumerate(zip(got, record)) if a != b]
+        if len(got) != len(record) or bad:
+            raise AssertionError(
+                f"{name}: {len(bad)} frames differ from the record (first "
+                f"{bad[:5]}; {len(got)} frames against {len(record)})")
+        return 0, 0
+    return assert_post_matches(stack_planes(frames), record, name,
+                               cfg.get("flips", False))
+
+
+def save_post(outputs: dict) -> None:
+    """{configuration: output frames} -> POST_PATH: the digests of an
+    exact configuration, the stacked planes of the others, each row stored
+    as its differences from the left neighbour (wrapping in the sample
+    type), which compresses to two thirds of the samples themselves."""
+    arrays = {}
+    for name, frames in outputs.items():
+        if POST_CONFIGS[name].get("exact"):
+            arrays[f"{name}/digests"] = np.array(post_digests(frames))
+            continue
+        for p, x in enumerate(stack_planes(frames)):
+            arrays[f"{name}/{p}"] = np.diff(x, axis=-1,
+                                            prepend=x.dtype.type(0))
+    np.savez_compressed(POST_PATH, **arrays)
+
+
+def load_post() -> dict:
+    """{configuration: digests (a list) or stacked planes} of POST_PATH."""
+    with np.load(POST_PATH) as z:
+        out = {}
+        for key in sorted(z.files):
+            name, part = key.split("/")
+            d = z[key]
+            if part == "digests":
+                out[name] = [str(x) for x in d]
+            else:
+                out.setdefault(name, []).append(
+                    np.cumsum(d, axis=-1, dtype=d.dtype))
+        return out

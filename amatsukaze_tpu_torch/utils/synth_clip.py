@@ -261,3 +261,26 @@ def broadcast_clip(name: str):
 
     return (open_frames, BROADCAST_FRAMES, video_format(spec["h"], spec["w"]),
             make_logos(**geom), make_broadcast_pcm(spec["seed"]))
+
+
+# ---------------------------------------------------------------------------
+# inputs of the post chain: QP maps and 10-bit frames
+# ---------------------------------------------------------------------------
+
+def qp_maps(n: int, seed: int, mb_h: int = 68, mb_w: int = 90) -> list:
+    """`n` per-frame macroblock QP maps [mb_h, mb_w] (uint8 values 2-31,
+    the MPEG-2 quantiser scales a broadcast encoder uses), seeded. The
+    defaults cover a 1440x1080 frame (1088 / 16 rows, 1440 / 16 columns)."""
+    rng = np.random.default_rng((seed, 2))
+    return [rng.integers(2, 32, (mb_h, mb_w), dtype=np.uint8)
+            for _ in range(n)]
+
+
+def to_10bit(frames: list, seed: int) -> list:
+    """The 8-bit (Y, U, V) frames as 10-bit samples (uint16): each value
+    times 4 plus two seeded low bits, so that the 8-bit downconvert
+    ((x + 2) >> 2) gives back about the same picture."""
+    rng = np.random.default_rng((seed, 3))
+    return [tuple((p.astype(np.uint16) << 2)
+                  | rng.integers(0, 4, p.shape, dtype=np.uint16)
+                  for p in planes) for planes in frames]

@@ -47,7 +47,23 @@ result line):
    layout against testdata/golden_cm.json (written by
    tests/test_torch_cm_stage.py); run_filter_stage(cm=...) in kfm_vfr over
    the 1440x1080 layout with the frame spill usable and forced off: out
-   zones, timecode text and every frame digest equal.
+   zones, timecode text and every frame digest equal;
+8. "post chain": deband's threefry selection field on the card bit-equal to
+   the CPU; each post op (deblock, temporal NR, deband, edge level, the
+   Lanczos3 resize, the motion-adaptive bob) on the card against the
+   port's CPU version on 4 frames, and its time per 32x1080x1440 batch
+   beside its bytes bound; five configurations through run_filter_stage at
+   full width, the counts set to 0 just before each and read just after
+   (yadif + deblock,nr,deband,edge + resize to 1280x720 and kfm_vfr +
+   deblock,nr with seeded QP maps, yadif60 with both parities of the
+   kernel, qtgmc + nr, all over 96 frames of the main clip with its logo;
+   a 3840x2160 10-bit clip in mode none + nr,deband,edge, uint16 out):
+   frames out, launches, seconds per pass, frames/s without the sink's
+   hashing, peak device memory; one yadif + chain run under the profiler;
+   the configurations of utils/golden.py over the 96x128 clip against
+   testdata/golden_post.npz (written by tests/test_torch_post_chain.py) and
+   against the CPU. Kernel A's checks in phase 2 include the bottom parity
+   (bit-equal, the rotation identity, its timings).
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -224,7 +240,8 @@ def assert_kernel_a(ff, x, what: str, erase=None) -> float:
     largest cost difference seen (0 unless the means round apart)."""
     worst = 0.0
     modes = [dict(write_frames=True), dict(write_frames=False, with_costs=True),
-             dict(write_frames=True, with_costs=True)]
+             dict(write_frames=True, with_costs=True),
+             dict(write_frames=True, parity_top=False)]
     if erase is not None:
         modes.append(dict(write_frames=True, with_costs=True, erase=erase))
     for kw in modes:
@@ -232,7 +249,7 @@ def assert_kernel_a(ff, x, what: str, erase=None) -> float:
         torch.cuda.synchronize()
         want = ff.yadif_fieldmatch_plain(x, **kw)
         name = ff.mode_name(kw["write_frames"], kw.get("with_costs", False),
-                            kw.get("erase"))
+                            kw.get("erase"), kw.get("parity_top", True))
         if got[0] is not None and not torch.equal(got[0], want[0]):
             n = (got[0] != want[0]).sum().item()
             raise AssertionError(f"{what} [{name}]: {n} pixels differ")
@@ -428,9 +445,25 @@ def check_kernels(dev) -> dict:
         assert_kernel_a(ff, luma[0][:BATCH + 1], "luma 33x1080x1440"),
         assert_kernel_a(ff, luma[0][:BATCH], "luma 32x1080x1440 + box",
                         erase=main_box))
-    log(f"check kernel A at 34x1080x1440, 34x540x720, 33x1080x1440 and "
-        f"32x1080x1440 with the {LOGO_H}x{LOGO_W} box: frames bit-equal, "
-        f"costs equal (max abs diff {cost_err:.3g}) in every mode")
+    assert_kernel_a(ff, luma[0][:1], "luma 1x1080x1440")
+    assert_kernel_a(ff, chroma[0][:1], "chroma 1x540x720")
+    log(f"check kernel A at 34x1080x1440, 34x540x720, 33x1080x1440, "
+        f"32x1080x1440 with the {LOGO_H}x{LOGO_W} box and at a batch of 1: "
+        f"frames bit-equal, costs equal (max abs diff {cost_err:.3g}) in "
+        f"every mode (yadif with either field kept)")
+    # bottom field kept == top field kept on the frames turned by 180
+    # degrees, turned back; values in steps of 40 make the direction
+    # search tie on most pixels
+    for x in (luma[1], chroma[1], frames(5, 38, 352)[:, :, 16:349]):
+        ties = (x // 40) * 40
+        bottom, _ = ff.yadif_fieldmatch(ties, parity_top=False)
+        top, _ = ff.yadif_fieldmatch(torch.flip(ties, (1, 2)).contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(bottom, torch.flip(top, (1, 2))):
+            raise AssertionError(f"rotation identity fails at "
+                                 f"{tuple(x.shape)}")
+    log("check kernel A bottom parity: the rotation identity holds bit for "
+        "bit at 34x1080x1440, 34x540x720 and a 5x38x333 view")
 
     # -- kernel A off the 16-byte path: odd widths, misaligned views --------
     odd = {
@@ -446,7 +479,7 @@ def check_kernels(dev) -> dict:
     for what, (x, box) in odd.items():
         assert_kernel_a(ff, x, what, erase=box)
         log(f"check kernel A on {what}: bit-equal frames, equal costs in "
-            f"yadif, costs, yadif+costs and yadif+costs+erase")
+            f"yadif, costs, yadif+costs, yadif+costs+erase and yadif_bottom")
 
     # -- kernel A timings ----------------------------------------------------
     def timed(name, bufs, kw, n_ops_per_px, extra_bytes=0, erase=None):
@@ -466,8 +499,10 @@ def check_kernels(dev) -> dict:
         n_tiles = ff.tile_count(h, ff.tile_rows_for(True))
         parts = (torch.empty((n_tiles, b, 3), dtype=torch.int64, device=dev)
                  if kw.get("with_costs") else None)
+        parity = kw.get("parity_top", True)
         _, alone = time_warm_cold(
-            lambda x: lambda: ff.launch_kernel(x, out, parts, erase), bufs, 20)
+            lambda x: lambda: ff.launch_kernel(x, out, parts, erase, parity),
+            bufs, 20)
         res[name] = row(bufs[0].shape, cold, plain, bound, 0.0,
                         warm_ms=warm["ms"], warm_min=warm["min"],
                         warm_max=warm["max"], kernel_alone_ms=alone["ms"],
@@ -480,6 +515,10 @@ def check_kernels(dev) -> dict:
 
     timed("yadif_y", luma, dict(write_frames=True), 40)
     timed("yadif_uv", chroma, dict(write_frames=True), 40)
+    timed("yadif_bottom_y", luma, dict(write_frames=True, parity_top=False),
+          40)
+    timed("yadif_bottom_uv", chroma,
+          dict(write_frames=True, parity_top=False), 40)
     costs_in = [x[:BATCH + 1] for x in luma]
     timed("costs_y", costs_in, dict(write_frames=False, with_costs=True), 30,
           extra_bytes=(BATCH + 1) * 12)
@@ -505,13 +544,18 @@ def check_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 class Sink:
-    """Counts the output frames, checks their planes and digests them."""
+    """Counts the output frames, checks their planes and digests them (or
+    keeps them, with keep=True)."""
 
-    def __init__(self, shapes):
-        from amatsukaze_tpu_torch.utils.golden import frame_digest
+    def __init__(self, shapes, dtype=np.uint8, keep=False):
+        from amatsukaze_tpu_torch.utils.golden import frame_digest, post_digests
 
-        self.digest = frame_digest
+        self.digest = (frame_digest if dtype == np.uint8
+                       else lambda planes: post_digests([planes])[0])
         self.shapes = shapes
+        self.dtype = dtype
+        self.keep = keep
+        self.frames = []
         self.digests = []
         self.seconds = 0.0  # spent here, inside the stage's output pass
 
@@ -519,9 +563,12 @@ class Sink:
         t0 = time.perf_counter()
         if tuple(p.shape for p in planes) != self.shapes:
             raise AssertionError(f"output planes {[p.shape for p in planes]}")
-        if any(p.dtype != np.uint8 for p in planes):
-            raise AssertionError("output planes must be uint8")
-        self.digests.append(self.digest(planes))
+        if any(p.dtype != self.dtype for p in planes):
+            raise AssertionError(f"output planes must be {self.dtype}")
+        if self.keep:
+            self.frames.append(planes)
+        else:
+            self.digests.append(self.digest(planes))
         self.seconds += time.perf_counter() - t0
 
 
@@ -555,18 +602,22 @@ def plain_versions():
         yield
 
 
-def run_stage(clip, fmt, logos, mode, device, batch=BATCH):
+def run_stage(clip, fmt, logos, mode, device, batch=BATCH, keep=False,
+              **kw):
     from amatsukaze_tpu_torch.pipeline.filter_stage import run_filter_stage
     from amatsukaze_tpu_torch.utils.context import AMTContext
 
     h, w = clip[0][0].shape
-    sink = Sink(((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    ow, oh = kw.get("resize") or (w, h)
+    ten_bit = clip[0][0].dtype == np.uint16 and not logos and mode == "none"
+    sink = Sink(((oh, ow), (oh // 2, ow // 2), (oh // 2, ow // 2)),
+                np.uint16 if ten_bit else np.uint8, keep)
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_filter_stage(AMTContext(level="warn"), lambda: iter(clip),
                            len(clip), fmt, logos, mode, sink, batch=batch,
-                           device=device)
+                           device=device, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize()
     return res, sink, time.perf_counter() - t0
@@ -974,6 +1025,280 @@ def cm_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the post chain, resize, 10-bit and double-rate paths
+# ---------------------------------------------------------------------------
+
+POST_FRAMES = 96  # of the main clip, for the 1440x1080 configurations
+UHD_H, UHD_W, UHD_FRAMES = 2160, 3840, 64  # the 10-bit configuration
+
+
+def make_uhd_clip_10bit(n, h, w, seed, device) -> list:
+    """(Y, U, V) uint16 10-bit planes of a progressive UHD source: smooth
+    diagonal gradients (where banding shows) panning slowly, a sharp-edged
+    box and mild noise, made on `device` from `seed`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = []
+    for k in range(n):
+        planes = []
+        for p, (ph, pw) in enumerate(((h, w), (h // 2, w // 2),
+                                      (h // 2, w // 2))):
+            yy = torch.arange(ph, device=device, dtype=torch.float32)[:, None]
+            xx = torch.arange(pw, device=device, dtype=torch.float32)[None]
+            sub = 1 if p == 0 else 2
+            f = (400.0 + 120.0 * p + 180.0 * (xx + 3.0 * k / sub) / pw
+                 + 90.0 * yy / ph + 40.0 * torch.sin(yy / (97.0 / sub)))
+            box = ((yy // (240 // sub)) % 2 == 0) & ((xx // (320 // sub)) % 3
+                                                     == 1)
+            f = torch.where(box, f + 150.0, f)
+            f = f + 1.5 * torch.randn(f.shape, generator=gen, device=device)
+            planes.append(f.round().clamp(0, 1023).to(torch.int16).cpu()
+                          .numpy().view(np.uint16))
+        frames.append(tuple(planes))
+    return frames
+
+
+def check_threefry(dev) -> None:
+    """deband's per-pixel selection field of two 1080x1440 frames (the
+    threefry hash on int64 tensors) on the card against the CPU."""
+    from amatsukaze_tpu_torch.ops import denoise, threefry
+
+    keys = threefry.fold_in(threefry.prng_key(0), torch.arange(2))
+    for step in range(2):
+        halves = threefry.split(keys)
+        keys, ksel = halves[:, 0], halves[:, 1]
+        cpu = denoise.deband_selection(ksel, H, W)
+        card = denoise.deband_selection(ksel.to(dev), H, W)
+        if not torch.equal(card.cpu(), cpu):
+            n = (card.cpu() != cpu).sum().item()
+            raise AssertionError(f"threefry selection step {step}: {n} "
+                                 f"values differ from the CPU")
+    log(f"check threefry: deband's selection fields of 2x{H}x{W} (both "
+        f"sample steps) bit-equal to the CPU")
+
+
+def post_op_bytes(b, h, w) -> dict:
+    """Bytes each op must move at [b, h, w] float32: its inputs read once,
+    its output written once."""
+    f = 4 * b * h * w
+    oh, ow = 720, 1280
+    return {"deblock_qp": 2 * f + 4 * b * (-(-h // 16)) * (-(-w // 16)),
+            "temporal_nr": 2 * f, "deband": 2 * f, "edge_level": 2 * f,
+            "resize_lanczos3": f + 4 * b * oh * ow
+            + 4 * (h * oh + w * ow),
+            # B + 2 distinct frames in, 2B out
+            "motion_adaptive_bob": 4 * (b + 2) * h * w + 2 * f}
+
+
+def check_post_ops(dev, clip) -> dict:
+    """Each post-chain op (and the resize and the motion-adaptive bob) on
+    the card against the port's CPU version on 4 frames of the main clip's
+    luma (bit-equal where the CPU tests find them bit-equal to the JAX
+    package; else within 1e-3 in the 8-bit domain and one code value after
+    rounding), then its time on the card per 32x1080x1440 batch (CUDA
+    events, median of 3 windows) beside its bytes bound."""
+    from amatsukaze_tpu_torch.ops import deint, denoise
+    from amatsukaze_tpu_torch.ops.resize import resize_lanczos3
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    luma = torch.from_numpy(np.stack([f[0] for f in clip[100:134]])).float()
+    qp = torch.from_numpy(np.stack(synth_clip.qp_maps(34, 11))).float()
+
+    def ops(x, q):
+        """name -> (call on frames x [B+2, H, W] 8-bit domain, exact)."""
+        mid = x[1:-1]
+        return {
+            "deblock_qp": (lambda: denoise.deblock_qp(mid, q[1:-1]), False),
+            "temporal_nr": (lambda: denoise.temporal_nr(mid * 64.0) / 64.0,
+                            True),
+            "deband": (lambda: denoise.deband(mid * 64.0, 0) / 64.0, True),
+            "edge_level": (lambda: denoise.edge_level(mid * 64.0) / 64.0,
+                           False),
+            "resize_lanczos3": (lambda: resize_lanczos3(mid, 720, 1280),
+                                False),
+            "motion_adaptive_bob": (lambda: deint.motion_adaptive_bob(
+                x[:-2], mid, x[2:], True), False),
+        }
+
+    small = ops(luma[:6], qp[:6])
+    card_small = ops(luma[:6].to(dev), qp[:6].to(dev))
+    full = ops(luma.to(dev), qp.to(dev))
+    out = {}
+    n_bytes = post_op_bytes(BATCH, H, W)
+    for name, (fn, exact) in small.items():
+        want = fn()
+        got = card_small[name][0]().cpu()
+        err = (got - want).abs().max().item()
+        q = lambda v: torch.floor(v + 0.5).clamp(0, 255)  # noqa: E731
+        codes = (q(got) - q(want)).abs().max().item()
+        if exact and err != 0.0:
+            raise AssertionError(f"{name}: card differs from the CPU by {err}")
+        if err > 1e-3 or codes > 1:
+            raise AssertionError(f"{name}: card vs CPU max abs err {err}, "
+                                 f"{codes} code values")
+        t = time_ms(lambda i: full[name][0](), 2, repeats=3)
+        bd = n_bytes[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(shape=[BATCH, H, W], ms=t["ms"], ms_min=t["min"],
+                         ms_max=t["max"], bound_ms=bd, bound_by="bytes",
+                         max_abs_err=err)
+        log(f"post op {name}: card vs CPU on 4x{H}x{W} "
+            f"{'bit-equal' if exact else f'max abs err {err:.3g}'}, "
+            f"rounded {codes:.0f} code values; {t} ms per {BATCH}x{H}x{W} "
+            f"batch, bytes bound {bd:.4f} ms")
+    return out
+
+
+def post_configs(clip, logos, dev):
+    """(name, frames, logos, run_filter_stage arguments, what it must
+    launch: kernel -> launches per plane and output chunk, or None for at
+    least one) of each configuration of the post phase."""
+    from amatsukaze_tpu_torch.ts.qp_extract import QpMapSource
+    from amatsukaze_tpu_torch.utils import golden, synth_clip
+
+    part = clip[:POST_FRAMES]
+    qp = QpMapSource(synth_clip.qp_maps(POST_FRAMES, golden.QP_SEED))
+    uhd = make_uhd_clip_10bit(UHD_FRAMES, UHD_H, UHD_W, 5, dev)
+    return [
+        ("yadif+deblock,nr,deband,edge+resize", part, logos,
+         dict(mode="yadif", post_filter="deblock,nr,deband,edge",
+              qp_source=qp, resize=(1280, 720)),
+         {"yadif": 1, "logo_eval": None}),
+        ("kfm_vfr+deblock,nr", part, logos,
+         dict(mode="kfm_vfr", post_filter="deblock,nr", qp_source=qp),
+         {"costs": None, "logo_eval": None}),
+        ("yadif60", part, logos, dict(mode="yadif60"),
+         {"yadif": 1, "yadif_bottom": 1, "logo_eval": None}),
+        ("qtgmc+nr", part, logos, dict(mode="qtgmc", post_filter="nr"),
+         {"logo_eval": None}),
+        ("none+nr,deband,edge 10-bit 3840x2160", uhd, [],
+         dict(mode="none", post_filter="nr,deband,edge"), {}),
+    ]
+
+
+def run_post_configs(dev, clip, logos) -> dict:
+    """The five configurations through run_filter_stage at full width, the
+    counts set to 0 just before each and read just after."""
+    from amatsukaze_tpu_torch.pipeline.filter_stage import HEAD_RAMP
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    out = {}
+    for name, frames, lg, kw, need in post_configs(clip, logos, dev):
+        h, w = frames[0][0].shape
+        fmt = synth_clip.video_format(h, w)
+        mode = kw.pop("mode")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res, sink, secs = run_stage(frames, fmt, lg, mode, dev, **kw)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # the output pass's chunks: the 8-frame head ramp, then batches
+        n_chunks = 1 + -(-(len(frames) - HEAD_RAMP) // BATCH)
+        for k, per in need.items():
+            want = 3 * n_chunks if per is not None else 1
+            if counts.get(k, 0) < want or (per is not None
+                                           and counts[k] != want):
+                raise AssertionError(f"{name}: launches {counts}, {k} "
+                                     f"should be {want}")
+        if len(sink.digests) != res.spec.num_out_frames:
+            raise AssertionError(f"{name}: {len(sink.digests)} frames out, "
+                                 f"spec {res.spec.num_out_frames}")
+        if mode in ("yadif60", "qtgmc") and len(sink.digests) != 2 * len(
+                frames):
+            raise AssertionError(f"{name}: {len(sink.digests)} frames out")
+        info = dict(frames=len(frames), out_frames=len(sink.digests),
+                    seconds=secs, pass_seconds=res.seconds,
+                    fps_without_sink=len(frames) / (secs - sink.seconds),
+                    sink_seconds=sink.seconds, peak_bytes=peak,
+                    launches=counts)
+        out[name] = info
+        log(f"post config {name}: {len(frames)} frames {w}x{h} -> "
+            f"{len(sink.digests)} frames {sink.shapes[0][1]}x"
+            f"{sink.shapes[0][0]} {np.dtype(sink.dtype).name}; {secs:.3f} s "
+            f"(passes {res.seconds}); {info['fps_without_sink']:.2f} "
+            f"frames/s without the sink's hashing ({sink.seconds:.3f} s); "
+            f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+    return out
+
+
+def profile_post(dev, clip, logos) -> dict:
+    """Device busy share of one yadif + chain + resize run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from amatsukaze_tpu_torch.ts.qp_extract import QpMapSource
+    from amatsukaze_tpu_torch.utils import golden, synth_clip
+
+    qp = QpMapSource(synth_clip.qp_maps(POST_FRAMES, golden.QP_SEED))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, secs = run_stage(clip[:POST_FRAMES],
+                               synth_clip.video_format(H, W), logos, "yadif",
+                               dev, post_filter="deblock,nr,deband,edge",
+                               qp_source=qp, resize=(1280, 720))
+    acts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in acts) / 1e6
+    if not busy_s:
+        log("profile post chain: no device time recorded (not measured)")
+        return dict(wall_seconds=secs, device_busy_share=None)
+    log(f"profile yadif+chain+resize: wall {secs:.3f} s, device busy "
+        f"{busy_s:.4f} s ({100 * busy_s / secs:.2f}%)")
+    for e in sorted(acts, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile post {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:90]}")
+    return dict(wall_seconds=secs, device_busy_seconds=busy_s,
+                device_busy_share=busy_s / secs)
+
+
+def post_golden(dev) -> None:
+    """The configurations of utils.golden.POST_CONFIGS over the recorded
+    96x128 clip on the card: against the JAX package's frames
+    (testdata/golden_post.npz) and against the port on the CPU, each by
+    the rules of utils.golden (the counts of samples apart are printed)."""
+    from amatsukaze_tpu_torch.utils import golden, synth_clip
+
+    recorded = golden.load_post()
+    frames, _, logos, _ = synth_clip.golden_clip(golden.POST_CLIP)
+    for name, cfg in golden.POST_CONFIGS.items():
+        f, lg, kw = golden.post_stage_inputs(name, frames, logos)
+        mode = kw.pop("mode")
+        fmt = synth_clip.video_format(*f[0][0].shape)
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            reset_counts()
+            _, sink, secs = run_stage(f, fmt, lg, mode, where,
+                                      golden.POST_BATCH, keep=True, **kw)
+            runs.append((sink.frames, secs, read_counts()))
+        (card, secs, counts), (cpu, _, _) = runs
+        vs_jax = golden.assert_post_record(card, recorded[name], name)
+        if cfg.get("exact"):
+            if golden.post_digests(card) != golden.post_digests(cpu):
+                raise AssertionError(f"{name}: card differs from the CPU")
+            vs_cpu = (0, 0)
+        else:
+            vs_cpu = golden.assert_post_matches(
+                golden.stack_planes(card), golden.stack_planes(cpu),
+                f"{name} card vs cpu", cfg.get("flips", False))
+        log(f"golden post {name}: 96x128, {len(card)} frames out, {secs:.3f}"
+            f" s, launches {counts}; "
+            + ("bit-equal to the JAX record and to the CPU"
+               if cfg.get("exact") else
+               f"vs the JAX record {vs_jax[0]} samples one code value apart"
+               f" and {vs_jax[1]} more, vs the CPU {vs_cpu[0]} and "
+               f"{vs_cpu[1]}"))
+
+
+def post_phase(dev, clip, logos) -> dict:
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: deblock and resize need float32 "
+                             "products")
+    check_threefry(dev)
+    out = {"ops": check_post_ops(dev, clip)}
+    out["configs"] = run_post_configs(dev, clip, logos)
+    out["profile"] = profile_post(dev, clip, logos)
+    post_golden(dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -990,8 +1315,9 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s ({built})")
     for name in ("yadif_fieldmatch", "logo_eval"):
         for line in (cuda_lib.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
+                log(f"ptxas {name}: {line.strip()[:160]}")
                 if "spill" in line and "0 bytes spill stores, 0 bytes spill" \
                         " loads" not in line:
                     raise AssertionError(f"{name}: ptxas reports spills")
@@ -1022,11 +1348,19 @@ def main() -> int:
     cm = cm_phase(dev)
     log(f"phase cm pass: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    post = post_phase(dev, clip, logos)
+    log(f"phase post chain: {time.perf_counter() - t0:.2f} s")
+
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
         ("yadif_fieldmatch[yadif]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:335",
          main["yadif"]["launches"].get("yadif", 0), checks["yadif_y"]),
+        ("yadif_fieldmatch[yadif_bottom]", "yadif_fieldmatch.cu",
+         "amatsukaze_tpu/ops/fused_filter.py:335",
+         post["configs"]["yadif60"]["launches"].get("yadif_bottom", 0),
+         checks["yadif_bottom_y"]),
         ("yadif_fieldmatch[costs]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:716",
          main["kfm_vfr"]["launches"].get("costs", 0)

@@ -383,6 +383,30 @@ def test_packed_rebuild_matches_plain_version_on_frames():
             np.testing.assert_array_equal(frames[f, 2 * y], want[f, 2 * y])
 
 
+@pytest.mark.parametrize("w,levels", [(37, 256), (40, 3)])
+def test_packed_rebuild_bottom_parity_matches_plain_version(w, levels):
+    """The kernel's bottom-parity rows: the rebuilt even row 2y from the
+    kept rows 2y-1 above (row 1 again on the first field row) and 2y+1
+    below, in that order, clamped by the previous and next frame's row 2y,
+    against yadif_fieldmatch_plain(parity_top=False)."""
+    rng = np.random.default_rng(w + levels)
+    frames = (rng.integers(0, levels, (3, 12, w)) * (255 // (levels - 1))
+              ).astype(np.uint8)
+    want, _ = yadif_fieldmatch_plain(torch.from_numpy(frames),
+                                     parity_top=False)
+    want = want.numpy()
+    prev = np.concatenate([frames[:1], frames[:-1]])
+    nxt = np.concatenate([frames[1:], frames[-1:]])
+    for f in range(3):
+        for y in range(6):
+            above = frames[f, 2 * max(y - 1, 0) + 1]
+            got = _packed_rebuild_row(above, frames[f, 2 * y + 1],
+                                      prev[f, 2 * y], nxt[f, 2 * y])
+            np.testing.assert_array_equal(got, want[f, 2 * y])
+            np.testing.assert_array_equal(frames[f, 2 * y + 1],
+                                          want[f, 2 * y + 1])
+
+
 def test_product_cost_sums_match_plain_version():
     """The three costs as the kernel sums them (per woven row the products
     of the steps' absolute differences, of the rows two apart, of the row
