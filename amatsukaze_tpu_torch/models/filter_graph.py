@@ -14,10 +14,13 @@ AMTFilterSource, Amatsukaze/FilteredSource.hpp:136-635):
           (ops.denoise: QP-map deblock, temporal NR, deband, edge level)
           and the Lanczos3 resize                         [KFM pass 3]
 
-Ported modes: none, yadif, yadif60, qtgmc, kfm_vfr, kfm_vfr30, kfm_cfr24.
-The output is rounded on the device to uint8, or to uint16 at src_bits 10
-(mode none with a post chain: the Main10 path). The JAX package's svp and
-autovfr modes and its multi-chip mesh are not ported yet.
+All nine modes of the JAX package: none, yadif, yadif60, qtgmc, kfm_vfr,
+kfm_vfr30, kfm_cfr24, svp (24p film interpolated to smooth 60p by
+ops.deint.mc_frame_interp) and autovfr (the KFM analysis in cycle-aligned
+sections run on host threads, parallel/ordered.py, with the AutoVfr flow's
+log and .def files). The output is rounded on the device to uint8, or to
+uint16 at src_bits 10 (mode none with a post chain: the Main10 path). The
+JAX package's multi-chip mesh is not ported yet.
 
 Where yadif feeds a post chain or a resize, the port follows the JAX
 package's production (TPU) path: the kernel's rounded uint8 frames feed the
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from ..ops import deint as deint_ops
 from ..ops import denoise, fused_filter
 from ..ops.resize import resize_lanczos3
+from ..parallel.ordered import ordered_parallel
 from ..types import VideoFormat
 from ..utils.batching import batched
 from ..utils.device import resolve_device
@@ -84,6 +88,10 @@ class FilterGraph:
     - kfm_vfr: KFM VFR with 60p fallback (mode=4, thswitch=3)
     - kfm_vfr30: KFM VFR without the 60p fallback (thswitch=-1)
     - kfm_cfr24: decimate everything to 24p (KFMDeint mode=2)
+    - svp: 24p reconstruction + MC interpolation to smooth 60p
+      (svp=true in the KFMDeint chain -> SVPflow)
+    - autovfr: section-parallel VFR analysis with Its-style def/timecode
+      file contracts (the AutoVfr.exe flow, Misc.cs:1346-1389)
     """
 
     MODE_NONE = "none"
@@ -93,19 +101,19 @@ class FilterGraph:
     MODE_KFM_VFR = "kfm_vfr"
     MODE_KFM_VFR30 = "kfm_vfr30"
     MODE_KFM_CFR24 = "kfm_cfr24"
+    MODE_SVP = "svp"
+    MODE_AUTOVFR = "autovfr"
 
-    KFM_FAMILY = frozenset({MODE_KFM_VFR, MODE_KFM_VFR30, MODE_KFM_CFR24})
+    # modes that run the KFM analysis passes and the plan's synthesis
+    KFM_FAMILY = frozenset({MODE_KFM_VFR, MODE_KFM_VFR30, MODE_KFM_CFR24,
+                            MODE_SVP, MODE_AUTOVFR})
     DOUBLE_RATE = frozenset({MODE_YADIF60, MODE_QTGMC})
     ALL_MODES = (MODE_NONE, MODE_YADIF, MODE_YADIF60, MODE_QTGMC,
-                 MODE_KFM_VFR, MODE_KFM_VFR30, MODE_KFM_CFR24)
-    # modes of the JAX package this port does not carry yet
-    NOT_PORTED = ("svp", "autovfr")
+                 MODE_KFM_VFR, MODE_KFM_VFR30, MODE_KFM_CFR24, MODE_SVP,
+                 MODE_AUTOVFR)
 
     def __init__(self, ctx, mode: str = "none", batch: int = 32,
                  device=None, post_chain=None, qp_source=None):
-        if mode in self.NOT_PORTED:
-            raise NotImplementedError(
-                f"filter mode {mode!r} is not ported to PyTorch yet")
         if mode not in self.ALL_MODES:
             raise ValueError(f"unknown filter mode {mode!r}")
         self.ctx = ctx
@@ -129,6 +137,9 @@ class FilterGraph:
         self.decisions = None
         self.frame_costs = None
         self.vfr_plan: VFRPlan | None = None
+        # svp: plane -> (last film frame on the device, its film index, its
+        # source index), so that interpolation pairs bridge batches
+        self._svp_carry: dict = {}
 
     def debug_dump(self, num_frames: int) -> dict:
         """JSON-able description of the configured graph and its analysis
@@ -162,7 +173,7 @@ class FilterGraph:
         decider = KFMDecider()
         if self.mode == self.MODE_KFM_VFR30:
             decider.allow_60 = False  # thswitch=-1 (Misc.cs:1320)
-        if self.mode == self.MODE_KFM_CFR24:
+        if self.mode in (self.MODE_KFM_CFR24, self.MODE_SVP):
             decider.force_film = True  # KFMDeint mode=2 (Misc.cs:1315)
         return decider
 
@@ -181,7 +192,7 @@ class FilterGraph:
         self.frame_costs = all_costs
         self.decisions = self._make_decider().decide(pattern)
         plan_frames = num_frames
-        if self.mode == self.MODE_KFM_CFR24:
+        if self.mode in (self.MODE_KFM_CFR24, self.MODE_SVP):
             # strict CFR output: the trailing partial cycle (<=4 frames)
             # is dropped rather than emitted at a different rate
             plan_frames = num_frames - (num_frames % 5)
@@ -196,7 +207,17 @@ class FilterGraph:
         Used by every KFM-family mode."""
         if self.mode not in self.KFM_FAMILY:
             return
-        costs = []
+        costs = list(self._section_costs(frame_iter, halo=False))
+        if not costs:
+            return
+        merged = torch.cat(costs).cpu().numpy()
+        self._finish_analysis(merged[:num_frames], num_frames)
+
+    def _section_costs(self, frame_iter, halo: bool):
+        """Field-match costs [n, 3] float32 on the device, per batch of a
+        stream of luma frames (the yadif_fieldmatch kernel, costs only;
+        nothing is fetched). With `halo` the first frame only gives the
+        next one its predecessor: its own row is dropped."""
         carry = None  # last frame of the previous batch for cross-batch match
         for chunk in batched(frame_iter, self.batch):
             arr = torch.from_numpy(normalize_u8(np.stack(chunk))).to(
@@ -204,12 +225,100 @@ class FilterGraph:
             arr_in = arr if carry is None else torch.cat([carry[None], arr])
             _, c = fused_filter.yadif_fieldmatch(
                 arr_in, write_frames=False, with_costs=True)
-            costs.append(c if carry is None else c[1:])
+            if carry is not None or halo:
+                c = c[1:]  # the carried frame's row, or the halo frame's
             carry = arr[-1]
-        if not costs:
+            halo = False
+            yield c
+
+    def analyze_autovfr(self, section_opener, num_frames: int,
+                        parallel: int = 2, log_prefix: str | None = None,
+                        sections_log: list | None = None) -> None:
+        """AutoVfr-equivalent sectioned analysis: split the sequence into
+        `parallel` cycle-aligned sections, compute their field-match costs
+        concurrently on host threads, delivered in strict order
+        (parallel/ordered.ordered_parallel, the AMTOrderedParallel analog),
+        then decide once over the merged costs (ref Server/Misc.cs:1346-1389:
+        N Auto_Vfr analysis clips under AMTOrderedParallel, logs
+        concatenated, AutoVfr.exe emits an Its .def, Its applies it).
+
+        section_opener(start, end) -> iterator of luma frames for source
+        indices [start, end). Sections request one frame of left halo so
+        that the costs across section edges equal the single-stream pass
+        (identical decisions whatever `parallel` is). The costs stay on the
+        device and are fetched once. A section that comes up short (decoder
+        EOF, a corrupt keyframe) is padded with its last row, an empty one
+        with zeros, so that the merged rows stay index-aligned.
+
+        With log_prefix, writes `{log_prefix}.autovfr{i}.log` per section
+        and `{log_prefix}.autovfr.def` (Its-style fps ranges), the
+        reference flow's file contracts. sections_log, where given,
+        receives the sections' (start, end)."""
+        if self.mode != self.MODE_AUTOVFR:
             return
-        merged = torch.cat(costs).cpu().numpy()
-        self._finish_analysis(merged[:num_frames], num_frames)
+        parallel = max(1, min(parallel, max(1, num_frames // 10)))
+        # cycle-aligned contiguous sections
+        per = -(-num_frames // parallel)
+        per += (-per) % 5
+        bounds = [(s, min(s + per, num_frames))
+                  for s in range(0, num_frames, per)]
+
+        def producer(sec_start, sec_end):
+            halo = sec_start > 0
+            got = 0
+            last = None
+            frames = section_opener(sec_start - int(halo), sec_end)
+            for c in self._section_costs(frames, halo):
+                got += len(c)
+                if len(c):
+                    last = c[-1:]
+                yield c
+            want = sec_end - sec_start
+            if got < want:
+                if last is not None:
+                    yield last.expand(want - got, 3)
+                else:
+                    yield torch.zeros((want - got, 3), dtype=torch.float32,
+                                      device=self.device)
+
+        per_section: list[list[torch.Tensor]] = [[] for _ in bounds]
+        for i, item in ordered_parallel(
+                [producer(s, e) for s, e in bounds]):
+            per_section[i].append(item)
+        if log_prefix:
+            for i, chunks in enumerate(per_section):
+                rows = sum(len(c) for c in chunks)
+                with open(f"{log_prefix}.autovfr{i + 1}.log", "w") as f:
+                    f.write(f"# section {bounds[i][0]}-{bounds[i][1]}\n"
+                            f"frames={rows}\n")
+        chunks = [c for section in per_section for c in section]
+        if sections_log is not None:
+            sections_log.extend(bounds)
+        if not chunks:
+            return
+        merged = torch.cat(chunks).cpu().numpy()[:num_frames]
+        self._finish_analysis(merged, num_frames)
+        if log_prefix and self.decisions is not None:
+            self._write_its_def(f"{log_prefix}.autovfr.def")
+
+    def _write_its_def(self, path: str) -> None:
+        """Its-style definition file: one `start end fps` frame range per
+        line over the source clip (the contract AutoVfr.exe's .def plays
+        in the reference flow; consumed there by Its to emit VFR +
+        timecodes, Misc.cs:1386)."""
+        fps_of = {CycleMode.FILM: 24, CycleMode.VIDEO_30: 30,
+                  CycleMode.VIDEO_60: 60}
+        ranges = []
+        for ci, d in enumerate(self.decisions):
+            fps = fps_of[d.mode]
+            if ranges and ranges[-1][2] == fps:
+                ranges[-1][1] = (ci + 1) * 5
+            else:
+                ranges.append([ci * 5, (ci + 1) * 5, fps])
+        with open(path, "w") as f:
+            f.write("# Its-style fps ranges (start end fps)\n")
+            for s, e, fps in ranges:
+                f.write(f"{s} {e} {fps}\n")
 
     # -- pass 3: output synthesis --------------------------------------------
     def output_spec(self, num_src_frames: int,
@@ -219,7 +328,13 @@ class FilterGraph:
             # resized output resets SAR to 1:1 (ref MakeOutFormat :618-634)
             out.out_format.width, out.out_format.height = self.resize
             out.out_format.sar_width = out.out_format.sar_height = 1
-        if self.mode in self.KFM_FAMILY and self.vfr_plan is not None:
+        if self.mode == self.MODE_SVP and self.vfr_plan is not None:
+            # 24p film reconstruction interpolated to smooth CFR 60p
+            n_film = len(self.vfr_plan.durations)
+            out.num_out_frames = (n_film * 5 + 1) // 2
+            out.out_format.mul_div_fps(2, 1)
+            out.out_format.progressive = True
+        elif self.mode in self.KFM_FAMILY and self.vfr_plan is not None:
             plan = self.vfr_plan
             out.durations = plan.durations
             out.num_out_frames = len(plan.durations)
@@ -293,23 +408,30 @@ class FilterGraph:
         return DeferredBatch(q, n_valid)
 
     def run_kfm_batch(self, frames: np.ndarray, prev_frame,
-                      start_index: int, plane: int = 0,
+                      start_index: int, plane: int = 0, final: bool = False,
                       n_real: int | None = None) -> DeferredBatch:
         """Synthesize the VFR output frames whose source index falls in
         [start_index, start_index + n_real) (the KFM pass-3 analog).
 
         frames: [B, H, W] source frames (one plane); prev_frame: the source
         frame before `start_index` (None at the sequence head), needed for
-        MERGE_PREV pulldown repair. n_real < len(frames) marks the trailing
+        MERGE_PREV pulldown repair. plane names the Y/U/V plane (svp keeps
+        a carry per plane); final marks the last batch of the stream (svp
+        emits its frozen tail). n_real < len(frames) marks the trailing
         rows as padding (repeats of the last frame). With a post chain the
         output entries are padded to a multiple of 8 with the last one, as
         the JAX package pads them for its executables: temporal NR then
-        averages the padding into the last real entries, as there."""
+        averages the padding into the last real entries, as there. svp
+        interpolates the unpadded entries and its outputs are not padded
+        (as there)."""
         if self.vfr_plan is None:
             raise RuntimeError("run_kfm_batch before analyze()")
         end_index = start_index + (len(frames) if n_real is None else n_real)
         entries = [(src, op) for src, op in self.vfr_plan.source_frames
                    if start_index <= src < end_index]
+        svp = self.mode == self.MODE_SVP
+        if not entries and svp and final:
+            return self._svp_emit(None, [], plane, True, frames.shape[1:])
         arr = self._upload(frames)
         if not entries:
             return DeferredBatch(arr[:0], 0)
@@ -326,7 +448,7 @@ class FilterGraph:
         if VFRPlan.BOB_B in ops_used:
             variants[VFRPlan.BOB_B] = bob_field(cur, top=False)
         n_entries = len(entries)
-        if self.post_chain is not None:
+        if self.post_chain is not None and not svp:
             entries = entries + [entries[-1]] * (-n_entries % 8)
         src_idx = torch.tensor([src - start_index for src, _ in entries],
                                device=self.device)
@@ -335,8 +457,71 @@ class FilterGraph:
         for op in ops_used - {VFRPlan.WEAVE}:
             m = torch.from_numpy(op_arr == op).to(self.device)[:, None, None]
             out = torch.where(m, variants[op][src_idx], out)
-        return self._finish(out, [src for src, _ in entries], frames.shape[1],
-                            plane, n_entries)
+        srcs = [src for src, _ in entries]
+        if svp:
+            return self._svp_emit(out, srcs, plane, final, frames.shape[1:])
+        return self._finish(out, srcs, frames.shape[1], plane, n_entries)
+
+    def _svp_emit(self, film, film_srcs: list, plane: int, final: bool,
+                  plane_hw) -> DeferredBatch:
+        """MC-interpolate this batch's film frames [n, H, W] (after the
+        plane's carry) to the 60p grid: output j sits at film time 2j/5,
+        between film frames k = (2j)//5 and k+1 (frac in {0, .4, .8, .2,
+        .6}). The last film frame carries to the next batch; `final`
+        freezes it for the tail outputs. film=None: no film frame in this
+        batch (only a final call emits then, from the carry). Then the
+        post chain, the resize and the rounding, as for every mode."""
+        carry = self._svp_carry.get(plane)
+        if film is None or not film_srcs:
+            if not (final and carry is not None):
+                return self._svp_empty(plane_hw)
+            seq = carry[0][None]
+            base = carry[1]
+            srcs = [carry[2]]
+        else:
+            # global film index of this batch's first film frame
+            all_srcs = [src for src, _ in self.vfr_plan.source_frames]
+            base = bisect.bisect_left(all_srcs, film_srcs[0])
+            seq = film
+            srcs = list(film_srcs)
+            if carry is not None:
+                seq = torch.cat([carry[0][None], film])
+                base -= 1
+                srcs = [carry[2]] + srcs
+        n_seq = len(srcs)
+        # pairs (k, k+1) with both ends here; `final` adds the frozen tail
+        # pair (last, last)
+        pair_hi = base + n_seq if final else base + n_seq - 1
+        outs = []  # (frac, a_local, b_local) per output, in order
+        for k in range(base, pair_hi):
+            a_local = k - base
+            b_local = min(a_local + 1, n_seq - 1)
+            for j in range(-(-5 * k // 2), -(-5 * (k + 1) // 2)):
+                outs.append((round(2 * j / 5 - k, 1), a_local, b_local))
+        self._svp_carry[plane] = (seq[-1], base + n_seq - 1, srcs[-1])
+        if final:
+            self._svp_carry.pop(plane, None)
+        if not outs:
+            return self._svp_empty(plane_hw)
+        ordered = torch.empty((len(outs),) + tuple(seq.shape[1:]),
+                              dtype=seq.dtype, device=seq.device)
+        by_frac: dict[float, list[int]] = {}
+        for i, (frac, _, _) in enumerate(outs):
+            by_frac.setdefault(frac, []).append(i)
+        for frac, idxs in by_frac.items():
+            a = seq[[outs[i][1] for i in idxs]]
+            if frac == 0.0:
+                interp = a
+            else:
+                interp = deint_ops.mc_frame_interp(
+                    a, seq[[outs[i][2] for i in idxs]], frac)
+            ordered[idxs] = interp
+        out_srcs = [srcs[a] for _, a, _ in outs]
+        return self._finish(ordered, out_srcs, plane_hw[0], plane, len(outs))
+
+    def _svp_empty(self, plane_hw) -> DeferredBatch:
+        return DeferredBatch(torch.empty((0, *plane_hw), dtype=torch.uint8,
+                                         device=self.device), 0)
 
     def run_pass3(self, frames: np.ndarray, prev_frame, next_frame,
                   start_index: int = 0, plane: int = 0) -> DeferredBatch:

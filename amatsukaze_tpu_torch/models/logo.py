@@ -1,16 +1,26 @@
-"""Logo frame matching (LogoFrame).
+"""Logo generation (LogoAnalyzer) and frame matching (LogoFrame).
 
-Counterpart of LogoFrameMatcher in amatsukaze_tpu/models/logo.py (ref
-LogoScan.hpp:1521-1836): score every frame against every candidate logo
-at a sweep of fade steps, select the logo by erase residual, smooth the
-scores into logo on/off intervals and derive the per-frame erase fade.
-The per-pixel scoring runs on the device through the logo_eval kernel;
-the decisions are host-side numpy, unchanged from the JAX package.
-LogoAnalyzer (logo generation) is not ported yet.
+Counterpart of amatsukaze_tpu/models/logo.py:
+
+- generation: LogoAnalyzer's 3-pass flow (ref LogoScan.hpp:794-1080).
+  Pass 1 keeps the frames whose scan-region border is one flat colour
+  (AddFrame :594-659) and accumulates per-pixel (fg, bg) regression sums on
+  the device; passes 2-3 score the kept frames at 20 fades with the
+  logo_eval kernel (its uint8 entry, DeintY inside), keep those whose best
+  fade is above 8/20 and solve again, with edge cleanup on the last pass.
+- matching: LogoFrameMatcher (ref LogoScan.hpp:1521-1836): score every
+  frame against every candidate logo at a sweep of fade steps, select the
+  logo by erase residual, smooth the scores into logo on/off intervals and
+  derive the per-frame erase fade.
+
+The per-pixel math runs on the device; frame acceptance, the least-squares
+solve and the decisions are host-side numpy, unchanged from the JAX
+package. Its slow-link host twins (ops/logo_host.py) are not carried.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -18,12 +28,308 @@ import torch
 
 from ..ops import logo as ops
 from ..ops import logo_eval
-from ..ops.logo_ref import LogoEvalRef
+from ..ops.logo_ref import LogoEvalRef, med_average
 from ..utils.batching import batched, pad_tail
 from ..utils.device import resolve_device
-from .lgd import LogoData
+from .lgd import LogoData, LogoHeader, save_lgd
 
 THRESH = 0.2  # |score| below this = indeterminate (ref LogoScan.hpp:1536)
+
+
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+def _sums_update(frames: torch.Tensor, bgs: torch.Tensor) -> torch.Tensor:
+    """One batch of per-pixel regression sums -> [5, H, W] float32, on the
+    frames' device."""
+    zero = torch.zeros((5, 1, 1), dtype=torch.float32, device=frames.device)
+    return ops.logo_sums_update(zero, frames, bgs)
+
+
+def border_flat_background(y, u, v, thy: int):
+    """AddFrame's border flatness test (ref LogoScan.hpp:594-659).
+
+    Returns (bgY, bgU, bgV) if the frame border is a single flat colour,
+    else None. Border = the 1-pixel frame edge of each plane.
+    """
+
+    def border(p):
+        return np.concatenate([p[0, :], p[-1, :], p[1:-1, 0], p[1:-1, -1]])
+
+    by, bu, bv = border(y), border(u), border(v)
+    for vals in (by, bu, bv):
+        if int(vals.max()) - int(vals.min()) > thy:
+            return None
+    return (med_average(by.tolist()), med_average(bu.tolist()),
+            med_average(bv.tolist()))
+
+
+def _calc_dist(a, b):
+    """Distance of an (A, B) pixel from identity (ref calcDist :430-432)."""
+    return (1.0 / 3.0) * (a - 1) * (a - 1) + (a - 1) * b + b * b
+
+
+def _maxfilter_3x3_plus(d):
+    """Two-pass 3-neighbour max (horizontal then vertical), matching the
+    reference maxfilter (:434-456) which overwrites work with the vertical
+    pass over the original data."""
+    w = d.copy()
+    w[:, 1:-1] = np.maximum(np.maximum(d[:, :-2], d[:, 1:-1]), d[:, 2:])
+    w[1:-1, :] = np.maximum(np.maximum(d[:-2, :], d[1:-1, :]), d[2:, :])
+    return w
+
+
+@dataclass
+class ScanRegion:
+    x: int
+    y: int
+    w: int
+    h: int
+
+
+class LogoScanAccumulator:
+    """Per-pixel regression sums for Y/U/V (ref LogoScan class :398-659).
+
+    Precision: the reference accumulates in double (LogoColor). Each batch
+    of at most 256 frames is summed on the device in float32 (exact for
+    8-bit data and integer background levels, ops.logo.logo_sums_update)
+    and folded into float64 totals on the device, which are exact integers
+    too; the solve runs on the host in float64, as the JAX package's.
+    """
+
+    MAX_EXACT_BATCH = 256
+
+    def __init__(self, scanw, scanh, log_uv_x=1, log_uv_y=1, thy=12,
+                 device=None):
+        self.scanw, self.scanh = scanw, scanh
+        self.log_uv_x, self.log_uv_y = log_uv_x, log_uv_y
+        self.thy = thy
+        self.device = resolve_device(device)
+        self.nframes = 0
+        wuv, huv = scanw >> log_uv_x, scanh >> log_uv_y
+        self.sums = [torch.zeros((5,) + shape, dtype=torch.float64,
+                                 device=self.device)
+                     for shape in ((scanh, scanw), (huv, wuv), (huv, wuv))]
+
+    def add_frames(self, ys, us, vs, bgs):
+        """Accumulate a batch of accepted frames: ys/us/vs [N, h, w] (numpy
+        or tensors of 8-bit values), bgs [(bgY, bgU, bgV)]."""
+        bg = torch.as_tensor(np.asarray(bgs, np.float32)).to(self.device)
+        planes = [torch.as_tensor(p).to(self.device) for p in (ys, us, vs)]
+        for i in range(0, len(bgs), self.MAX_EXACT_BATCH):
+            sl = slice(i, i + self.MAX_EXACT_BATCH)
+            for c, (acc, p) in enumerate(zip(self.sums, planes)):
+                acc += _sums_update(p[sl], bg[sl, c])
+        self.nframes += len(bgs)
+
+    @staticmethod
+    def _solve_ab(sums: np.ndarray, n: int, maxv=255.0):
+        """Vectorised GetAB in float64 (ref approxim_line/GetAB :336-396)."""
+        s = sums.copy()
+        s[0] /= maxv
+        s[1] /= maxv
+        s[2] /= maxv * maxv
+        s[3] /= maxv * maxv
+        s[4] /= maxv * maxv
+        sum_f, sum_b, sum_f2, sum_b2, sum_fb = s
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1 = n * sum_f2 - sum_f * sum_f
+            a1 = (n * sum_fb - sum_f * sum_b) / t1
+            b1 = (sum_f2 * sum_b - sum_f * sum_fb) / t1
+            t2 = n * sum_b2 - sum_b * sum_b
+            a2 = (n * sum_fb - sum_b * sum_f) / t2
+            b2 = (sum_b2 * sum_f - sum_b * sum_fb) / t2
+            a = (a1 + 1.0 / a2) / 2.0
+            b = (b1 + (-b2 / a2)) / 2.0
+        a = a.astype(np.float32)
+        b = b.astype(np.float32)
+        valid = np.isfinite(a) & np.isfinite(b) & (a != 0)
+        return np.array(a), np.array(b), valid
+
+    def get_logo(self, header: LogoHeader, clean: bool) -> LogoData | None:
+        """Solve per-pixel least squares; None if any pixel is degenerate
+        (ref GetLogo :490-566). Raw 0..255 sums are normalised here, as
+        Normalize(255)."""
+        n = self.nframes
+        if n < 2:
+            return None
+        sums = [t.cpu().numpy() for t in self.sums]
+        ay, by, vy = self._solve_ab(sums[0], n)
+        au, bu, vu = self._solve_ab(sums[1], n)
+        av, bv, vv = self._solve_ab(sums[2], n)
+        if not (vy.all() and vu.all() and vv.all()):
+            return None
+
+        if clean:
+            # edge cleanup (ref :516-563): zero out pixels whose distance
+            # from identity stays small after 3x max-filtering
+            yy, xx = np.mgrid[0 : self.scanh, 0 : self.scanw]
+            uvy, uvx = yy >> self.log_uv_y, xx >> self.log_uv_x
+            dist = (
+                _calc_dist(ay, by)
+                + _calc_dist(au[uvy, uvx], bu[uvy, uvx])
+                + _calc_dist(av[uvy, uvx], bv[uvy, uvx])
+            ) * 1000.0
+            for _ in range(3):
+                dist = _maxfilter_3x3_plus(dist)
+            weak = dist < 0.3
+            ay[weak] = 1.0
+            by[weak] = 0.0
+            weak_uv = np.zeros_like(au, bool)
+            weak_uv[uvy[weak], uvx[weak]] = True
+            for p, q in ((au, bu), (av, bv)):
+                p[weak_uv] = 1.0
+                q[weak_uv] = 0.0
+
+        return LogoData(
+            header=header,
+            a_y=ay.astype(np.float32), b_y=by.astype(np.float32),
+            a_u=au.astype(np.float32), b_u=bu.astype(np.float32),
+            a_v=av.astype(np.float32), b_v=bv.astype(np.float32),
+        )
+
+
+class LogoAnalyzer:
+    """3-pass logo generation from a frame source (ref :794-1080)."""
+
+    NUM_FADE = 20
+
+    def __init__(self, ctx, region: ScanRegion, thy=12, num_max_frames=10000,
+                 log_uv_x=1, log_uv_y=1, batch=64, progress_cb=None,
+                 device=None):
+        self.ctx = ctx
+        self.region = region
+        self.thy = thy
+        self.num_max_frames = num_max_frames
+        self.log_uv_x, self.log_uv_y = log_uv_x, log_uv_y
+        self.batch = batch
+        self.progress_cb = progress_cb or (lambda *a: True)
+        self.device = resolve_device(device)
+        # accepted frame store (replaces the UtVideo workfile): uint8 crops
+        self.frames_y: list[np.ndarray] = []
+        self.frames_u: list[np.ndarray] = []
+        self.frames_v: list[np.ndarray] = []
+        self.logodata: LogoData | None = None
+        # per refinement pass: each kept frame's best fade step (0..19)
+        self.min_fades: list[np.ndarray] = []
+        # wall seconds of each pass ("scan", "refine", "refine_final");
+        # each ends in a fetch from the device
+        self.seconds: dict[str, float] = {}
+
+    def _header(self, imgw, imgh, name="No Name", service_id=-1):
+        r = self.region
+        return LogoHeader(r.w, r.h, self.log_uv_x, self.log_uv_y,
+                          imgw, imgh, r.x, r.y, name, service_id)
+
+    def _accumulator(self) -> LogoScanAccumulator:
+        r = self.region
+        return LogoScanAccumulator(r.w, r.h, self.log_uv_x, self.log_uv_y,
+                                   self.thy, self.device)
+
+    def scan(self, frame_iter, imgw, imgh, name="No Name",
+             service_id=-1) -> LogoData:
+        """frame_iter yields (Y, U, V) full planes (uint8 numpy)."""
+        header = self._header(imgw, imgh, name, service_id)
+        for key, run in (("scan", lambda: self._initial_pass(frame_iter,
+                                                             header)),
+                         ("refine", lambda: self._remake(header, False)),
+                         ("refine_final", lambda: self._remake(header, True))):
+            t0 = time.perf_counter()
+            run()
+            self.seconds[key] = time.perf_counter() - t0
+        return self.logodata
+
+    # -- pass 1 -------------------------------------------------------------
+    def _initial_pass(self, frame_iter, header) -> None:
+        r = self.region
+        acc = self._accumulator()
+        ys0, ys1 = r.y >> self.log_uv_y, (r.y + r.h) >> self.log_uv_y
+        xs0, xs1 = r.x >> self.log_uv_x, (r.x + r.w) >> self.log_uv_x
+        pend_bg = []
+        for n, (y, u, v) in enumerate(frame_iter):
+            if len(self.frames_y) >= self.num_max_frames:
+                break
+            sy = y[r.y : r.y + r.h, r.x : r.x + r.w]
+            su = u[ys0:ys1, xs0:xs1]
+            sv = v[ys0:ys1, xs0:xs1]
+            bg = border_flat_background(sy, su, sv, self.thy)
+            if bg is None:
+                continue
+            self.frames_y.append(sy.copy())
+            self.frames_u.append(su.copy())
+            self.frames_v.append(sv.copy())
+            pend_bg.append(bg)
+            if len(pend_bg) >= self.batch:
+                self._add_last(acc, pend_bg)
+                pend_bg = []
+                if self.progress_cb("scan", len(self.frames_y), n + 1) is False:
+                    break
+        if pend_bg:
+            self._add_last(acc, pend_bg)
+        self.logodata = acc.get_logo(header, clean=False)
+        if self.logodata is None:
+            raise RuntimeError("insufficient logo frames")
+
+    def _add_last(self, acc: LogoScanAccumulator, bgs: list) -> None:
+        """Accumulate the last len(bgs) stored frames (uint8 up, widened on
+        the device)."""
+        k = len(bgs)
+        acc.add_frames(*(np.stack(store[-k:]) for store in
+                         (self.frames_y, self.frames_u, self.frames_v)), bgs)
+
+    # -- passes 2-3 -----------------------------------------------------------
+    def _remake(self, header, final: bool) -> None:
+        self.progress_cb("refine-final" if final else "refine",
+                         len(self.frames_y), len(self.frames_y))
+        # deinterlace the current logo estimate + build the eval mask
+        deint_a = ops.batched_deint_logo(
+            torch.from_numpy(self.logodata.a_y)).numpy()
+        deint_b = ops.batched_deint_logo(
+            torch.from_numpy(self.logodata.b_y)).numpy()
+        ref = LogoEvalRef(deint_a, deint_b, maskratio=0.1)
+        params = ops.LogoEvalParams.from_ref(ref, self.device)
+        fades = torch.from_numpy(
+            np.arange(self.NUM_FADE, dtype=np.float32) * np.float32(0.1)
+        ).to(self.device)
+
+        # the kept uint8 crops, scored at every fade (DeintY inside the
+        # kernel); the best fades come down once
+        best = []
+        for chunk in batched(self.frames_y, self.batch):
+            window = torch.from_numpy(np.stack(chunk)).to(self.device)
+            scores = logo_eval.evaluate_logo_u8(params, window, 255.0, fades)
+            best.append(scores.abs().argmin(dim=1))
+        min_fades = (torch.cat(best).cpu().numpy().astype(np.int32) if best
+                     else np.zeros(0, np.int32))
+        self.min_fades.append(min_fades)
+
+        # re-accumulate with clearly-logo-on frames only (minFade > 8/20)
+        acc = self._accumulator()
+        sel = np.nonzero(min_fades > 8)[0]
+        for i in range(0, len(sel), self.batch):
+            idxs = sel[i : i + self.batch]
+            bgs = []
+            for j in idxs:
+                bg = border_flat_background(
+                    self.frames_y[j], self.frames_u[j], self.frames_v[j],
+                    self.thy)
+                bgs.append(bg if bg else (0, 128, 128))
+            acc.add_frames(*(np.stack([store[j] for j in idxs]) for store in
+                             (self.frames_y, self.frames_u, self.frames_v)),
+                           bgs)
+        new_logo = acc.get_logo(header, clean=final)
+        if new_logo is None:
+            raise RuntimeError("insufficient logo frames in refinement")
+        self.logodata = new_logo
+
+    def save(self, path: str) -> None:
+        save_lgd(path, self.logodata)
+
+
+# ---------------------------------------------------------------------------
+# matching
+# ---------------------------------------------------------------------------
 
 
 @dataclass

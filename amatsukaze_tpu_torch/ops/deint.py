@@ -2,7 +2,8 @@
 
 Counterpart of amatsukaze_tpu/ops/deint.py, cut to what the port runs:
 field split / weave, bob, yadif (either field kept), the motion-adaptive
-double-rate bob of the qtgmc mode, the field-match costs and the per-cycle
+double-rate bob of the qtgmc mode, the motion-compensated frame
+interpolation of the svp mode, the field-match costs and the per-cycle
 pattern aggregation. The same math as the JAX functions, on [B, H, W]
 tensors. ops.fused_filter's plain version is built from these; its CUDA
 kernel computes the same function in one pass.
@@ -165,6 +166,37 @@ def motion_adaptive_bob(prev: torch.Tensor, cur: torch.Tensor,
                                     nxt_b, (cur_b - nxt_b).abs(), True))
     b, h, w = cur.shape
     return torch.stack([first, second], dim=1).reshape(2 * b, h, w)
+
+
+def mc_frame_interp(a: torch.Tensor, b: torch.Tensor, frac: float,
+                    max_shift: int = 4) -> torch.Tensor:
+    """Motion-compensated intermediate frame between a (t=0) and b (t=1) at
+    the time fraction `frac` (a Python float), for the svp mode: per pixel,
+    the horizontal displacement dd in [-max_shift, max_shift] that best
+    fits b(x) = a(x - dd) picks the cross-fade of a(x - frac*dd) with
+    b(x + (1-frac)*dd) (shifts rounded half to even, as Python's round);
+    where even the best fit is off by more than 24, the plain cross-fade.
+    Every product and sum is its own operation, so the card gives the
+    CPU's bits. XLA on the CPU fuses some of the cross-fades into
+    multiply-adds, choosing the product to fuse per site (no fixed choice
+    reproduces it), so the JAX package's values differ from these in the
+    last bit, and its frames by one code value at rounding ties."""
+    blend0 = (1.0 - frac) * a + frac * b
+    best = blend0
+    best_err = (a - b).abs()
+    for d in range(1, max_shift + 1):
+        for sgn in (1, -1):
+            dd = sgn * d
+            # match error in b's frame, moved to the output pixel (output x
+            # samples b at x + (1-frac)*dd)
+            err_b = (_shift_cols(a, -dd) - b).abs()
+            err = _shift_cols(err_b, int(round((1.0 - frac) * dd)))
+            cand = ((1.0 - frac) * _shift_cols(a, -int(round(frac * dd)))
+                    + frac * _shift_cols(b, int(round((1.0 - frac) * dd))))
+            better = err < best_err
+            best = torch.where(better, cand, best)
+            best_err = torch.where(better, err, best_err)
+    return torch.where(best_err > 24.0, blend0, best)
 
 
 def combing_metric_fields(top: torch.Tensor,

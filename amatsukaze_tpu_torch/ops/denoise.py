@@ -9,9 +9,14 @@ is a hand-written kernel here.
 What is bit-equal to the JAX package and what is not: temporal_nr, deband
 (its random offsets and selection come from ops.threefry, JAX's own
 stream), to_14bit and to_10bit use only exact operations or the same
-single roundings in the same order. deblock_qp's DCT products sum in
-another order than XLA's einsum, and XLA on the CPU contracts edge_level's
-`c - lap * k` into a fused multiply-add: those agree to float rounding.
+single roundings in the same order. deblock_qp sums each 8-tap DCT product
+in the order of XLA's einsum on the CPU (dct8_sum), and edge_level takes
+`c - lap * k` as the fused multiply-add that XLA on the CPU contracts it
+into (fma_f32), so both are bit-equal to the JAX package there too.
+
+Every sum here is a fixed sequence of separate elementwise operations, so
+the card and the CPU give the same bits: no matrix product whose order a
+BLAS picks, nothing that a compiler could contract into an FMA.
 """
 
 from __future__ import annotations
@@ -44,6 +49,33 @@ def _dct8_matrix() -> np.ndarray:
 _DCT8 = _dct8_matrix()
 
 
+def fma_f32(prod: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 fma(x, y, acc) from prod = x * y taken in float64 (exact for
+    float32 x, y): the sum rounds to float64 and then to float32, which is
+    the fused multiply-add's single rounding unless the float64 sum lands
+    exactly on a float32 tie (a chance of about 2^-29 a sum)."""
+    return (prod + acc.double()).float()
+
+
+def dct8_sum(terms: list) -> torch.Tensor:
+    """The float32 sum of 8 exact float64 products t_0..t_7 in the order of
+    XLA's 8-deep dot on the CPU: four accumulators a_r = fma(t_{r+4},
+    round(t_r)), then (a_0 + a_1) + (a_2 + a_3). Reproduces jnp.einsum's
+    DCT products in amatsukaze_tpu/ops/denoise.py bit for bit (tested)."""
+    acc = [fma_f32(terms[r + 4], terms[r].float()) for r in range(4)]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _dct_left(m: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """m @ y per block: m float64 [8, 8], y float64 [..., 8, 8]."""
+    return dct8_sum([m[:, j, None] * y[..., j, None, :] for j in range(8)])
+
+
+def _dct_right(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """y @ m.T per block."""
+    return dct8_sum([y[..., :, k, None] * m[:, k] for k in range(8)])
+
+
 def deblock_qp(frames: torch.Tensor, qp_map: torch.Tensor,
                strength: float = 1.0, qp_block_scale: int = 2) -> torch.Tensor:
     """Soft-threshold 8x8 DCT coefficients by the macroblock's quantiser.
@@ -52,12 +84,15 @@ def deblock_qp(frames: torch.Tensor, qp_map: torch.Tensor,
     Coefficients below qp*strength shrink toward zero, those below twice
     it are soft-thresholded, larger ones and the DC pass. qp_block_scale:
     8-pixel blocks per QP cell along each axis (2 for luma, 1 for 4:2:0
-    chroma)."""
+    chroma). The DCT products take their taps in the order of the JAX
+    package's einsums: D X first, then (D X) D^T, and for the inverse
+    D^T C first (dct8_sum)."""
     b, h, w = frames.shape
     hb, wb = h // 8, w // 8
-    d = torch.from_numpy(_DCT8).to(frames.device)
+    d = torch.from_numpy(_DCT8).to(frames.device, torch.float64)
     blocks = frames.reshape(b, hb, 8, wb, 8).permute(0, 1, 3, 2, 4)
-    coef = d @ blocks @ d.T  # D X D^T per block
+    # D X D^T per block
+    coef = _dct_right(_dct_left(d, blocks.double()).double(), d)
     s = qp_block_scale
     qp8 = qp_map.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2)
     thresh = (qp8[:, :hb, :wb] * strength)[..., None, None]
@@ -67,7 +102,8 @@ def deblock_qp(frames: torch.Tensor, qp_map: torch.Tensor,
     keep_dc = torch.zeros((8, 8), dtype=torch.bool, device=frames.device)
     keep_dc[0, 0] = True
     coef = torch.where(keep_dc, coef, soft)
-    out = d.T @ coef @ d  # inverse DCT
+    dt = d.T.contiguous()
+    out = _dct_right(_dct_left(dt, coef.double()).double(), dt)  # inverse
     return out.permute(0, 1, 3, 2, 4).reshape(b, h, w)
 
 
@@ -168,7 +204,7 @@ def edge_level(frames: torch.Tensor, strength: float = 10.0,
     grad = (rt - lf).abs() + (dn - up).abs()
     lap = (up + dn + lf + rt) * 0.25 - c
     apply = (grad > lower_thresh) & (grad < upper_thresh)
-    sharp = c - lap * (strength / 16.0)
+    sharp = fma_f32(lap.double() * -(strength / 16.0), c)  # as XLA fuses it
     nmin = torch.minimum(torch.minimum(up, dn), torch.minimum(lf, rt))
     nmax = torch.maximum(torch.maximum(up, dn), torch.maximum(lf, rt))
     repaired = torch.minimum(torch.maximum(sharp, torch.minimum(nmin, c)),

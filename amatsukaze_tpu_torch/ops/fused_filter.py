@@ -23,6 +23,7 @@ frames themselves, as in the Pallas kernels' batch-edge clamping.
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 from dataclasses import dataclass
 
@@ -224,8 +225,7 @@ def yadif_fieldmatch(frames: torch.Tensor, *, write_frames: bool = True,
     partials = (torch.empty((n_tiles, b, 3), dtype=torch.int64, device=dev)
                 if with_costs else None)
     launch_kernel(frames, out, partials, erase, parity_top)
-    yadif_fieldmatch.launches[
-        mode_name(write_frames, with_costs, erase, parity_top)] += 1
+    count_launch(mode_name(write_frames, with_costs, erase, parity_top))
     costs = None
     if with_costs:
         # the tiles' integer sums, exact in float64 (far below 2^53), then
@@ -237,6 +237,15 @@ def yadif_fieldmatch(frames: torch.Tensor, *, write_frames: bool = True,
 
 
 yadif_fieldmatch.launches = Counter()
+_count_lock = threading.Lock()
+
+
+def count_launch(mode: str) -> None:
+    """One more launch in `mode` (yadif_fieldmatch.launches). Under a lock:
+    the autovfr analysis launches from several threads, and a Counter's
+    += is a read-modify-write."""
+    with _count_lock:
+        yadif_fieldmatch.launches[mode] += 1
 
 
 def yadif_fieldmatch_plain(frames: torch.Tensor, *, write_frames: bool = True,

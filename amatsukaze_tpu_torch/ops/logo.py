@@ -273,3 +273,54 @@ def batched_delogo(src: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     bg = a * src + b * maxv
     tmp = fade * bg + (1.0 - fade) * src
     return torch.floor(tmp + 0.5).clamp(0.0, maxv)
+
+
+# ---------------------------------------------------------------------------
+# logo generation: per-pixel regression sums and their closed-form solve
+# ---------------------------------------------------------------------------
+
+def field_fades(fade_t: torch.Tensor, fade_b: torch.Tensor,
+                height: int) -> torch.Tensor:
+    """Expand per-frame top/bottom fades [B] to per-row fades [B, H]."""
+    rows = torch.arange(height, device=fade_t.device) % 2
+    return torch.where(rows[None, :] == 0, fade_t[:, None], fade_b[:, None])
+
+
+def logo_sums_update(sums: torch.Tensor, frames: torch.Tensor,
+                     bgs: torch.Tensor) -> torch.Tensor:
+    """Accumulate the per-pixel regression sums over a batch of frames.
+
+    sums   : [5, H, W] (sumF, sumB, sumF2, sumB2, sumFB) - ref LogoColor::Add
+    frames : [N, H, W] pixel values
+    bgs    : [N] per-frame background level
+
+    In float32, 8-bit frames and the integer background levels that the
+    scan's border test gives (med_average) keep every sum an integer below
+    2^24 for batches of at most 256 frames: exact in any order, so the card
+    and the CPU (and XLA) give the same sums."""
+    f = frames.double() if sums.dtype == torch.float64 else frames.float()
+    b = bgs.to(f.dtype)
+    sum_f = f.sum(dim=0)
+    ones = torch.ones_like(sum_f)
+    sum_b = b.sum() * ones
+    sum_f2 = (f * f).sum(dim=0)
+    sum_b2 = (b * b).sum() * ones
+    sum_fb = (f * b[:, None, None]).sum(dim=0)
+    return sums + torch.stack([sum_f, sum_b, sum_f2, sum_b2, sum_fb])
+
+
+def logo_ab_from_sums(sums: torch.Tensor, n):
+    """Closed-form GetAB per pixel (ref approxim_line/GetAB :336-396).
+
+    Returns (A, B, valid) with A/B float32 [H, W]."""
+    sum_f, sum_b, sum_f2, sum_b2, sum_fb = sums
+    t1 = n * sum_f2 - sum_f * sum_f
+    a1 = (n * sum_fb - sum_f * sum_b) / t1
+    b1 = (sum_f2 * sum_b - sum_f * sum_fb) / t1
+    t2 = n * sum_b2 - sum_b * sum_b
+    a2 = (n * sum_fb - sum_b * sum_f) / t2
+    b2 = (sum_b2 * sum_f - sum_b * sum_fb) / t2
+    a = (a1 + 1.0 / a2) / 2.0
+    b = (b1 + (-b2 / a2)) / 2.0
+    valid = torch.isfinite(a) & torch.isfinite(b) & (a != 0)
+    return a.float(), b.float(), valid

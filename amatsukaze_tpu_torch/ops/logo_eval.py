@@ -13,6 +13,7 @@ the plain versions.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -38,6 +39,8 @@ SHARED_BYTES_MAX = 227 * 1024
 
 _fn = None
 _tickets: dict[tuple, torch.Tensor] = {}
+# guards _tickets and the launch count: callers may launch from threads
+_lock = threading.Lock()
 
 
 def bind(lib: ctypes.CDLL):
@@ -90,11 +93,12 @@ def _ticket_counters(batch: int, device: torch.device,
     them back). Kept per device and stream: launches on one stream run one
     after the other."""
     key = (device.index, stream)
-    t = _tickets.get(key)
-    if t is None or t.shape[0] < batch:
-        t = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
-        _tickets[key] = t
-    return t
+    with _lock:
+        t = _tickets.get(key)
+        if t is None or t.shape[0] < batch:
+            t = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+            _tickets[key] = t
+        return t
 
 
 def launch_kernel(params: LogoEvalParams, src: torch.Tensor, maxv: float,
@@ -148,7 +152,7 @@ def launch_kernel(params: LogoEvalParams, src: torch.Tensor, maxv: float,
             tickets.data_ptr(), scores.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"logo_eval kernel launch failed (CUDA error {rc})")
-    evaluate_logo.launches += 1
+    count_launch()
     return scores
 
 
@@ -163,6 +167,13 @@ def evaluate_logo(params: LogoEvalParams, src: torch.Tensor, maxv: float,
 
 # launches of the kernel, by either entry
 evaluate_logo.launches = 0
+
+
+def count_launch() -> None:
+    """One more launch (evaluate_logo.launches), under the lock: callers may
+    launch from several threads."""
+    with _lock:
+        evaluate_logo.launches += 1
 
 
 def evaluate_logo_u8(params: LogoEvalParams, window: torch.Tensor,

@@ -138,7 +138,9 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
                      analysis_cache_bytes: int | None = None,
                      timecode_path: str | None = None,
                      dump_path: str | None = None, post_filter: str = "",
-                     qp_source=None, resize=None) -> FilterStageResult:
+                     qp_source=None, resize=None, open_section=None,
+                     autovfr_parallel: int = 2,
+                     autovfr_prefix: str | None = None) -> FilterStageResult:
     """Run the filter core over one output file and call `sink((y, u, v))`
     with every output frame (uint8 planes; uint16 on the 10-bit path), in
     order.
@@ -161,7 +163,17 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     "deband", "edge"; models.filter_graph.build_post_chain; unknown tokens
     raise ValueError). qp_source: a ts.qp_extract.QpMapSource of the
     file's frames for "deblock" (without one, deblock is skipped). resize:
-    the output (width, height), a Lanczos3 resize after the chain."""
+    the output (width, height), a Lanczos3 resize after the chain.
+
+    Mode "autovfr" analyses the source in `autovfr_parallel` sections on
+    host threads (FilterGraph.analyze_autovfr; 2 is the JAX package's
+    default, settings.py autovfr_parallel): open_section(start, end)
+    returns an iterator of the source luma planes of frames [start, end),
+    not erased, as the JAX pipeline's section opener decodes them; without
+    it the stage reads open_frames() and skips forward to `start`.
+    autovfr_prefix: write the sections' logs and the .def file there. The
+    frame spill is not filled in this mode: the output pass decodes and
+    erases again."""
     if cm_zones_mode not in CM_ZONES_MODES:
         raise ValueError(f"cm_zones_mode must be one of {CM_ZONES_MODES}")
     post_chain = build_post_chain(post_filter)
@@ -204,7 +216,11 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
         fg.resize = tuple(resize)
     fg.kfm_ucf = kfm_ucf
     spill = None
-    if fg.mode in FilterGraph.KFM_FAMILY:
+    if fg.mode == FilterGraph.MODE_AUTOVFR:
+        fg.analyze_autovfr(open_section or _forward_opener(open_frames),
+                           num_frames, parallel=max(1, autovfr_parallel),
+                           log_prefix=autovfr_prefix)
+    elif fg.mode in FilterGraph.KFM_FAMILY:
         spill = FrameSpill(analysis_cache_cap(analysis_cache_bytes))
 
         def tee_y():
@@ -267,6 +283,22 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
                              seconds)
 
 
+def _forward_opener(open_frames):
+    """A section opener over open_frames(): decode from the start and skip
+    to the section (the JAX section opener's own fallback,
+    transcode.py:779-788)."""
+
+    def opener(start: int, end: int):
+        start = max(0, start)
+        for i, planes in enumerate(open_frames()):
+            if i >= end:
+                break
+            if i >= start:
+                yield planes[0]
+
+    return opener
+
+
 def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
     """Batch the frames through the filter graph, per plane (Y/U/V run the
     same ops at their own resolutions), and feed the sink. Batch k is
@@ -278,7 +310,10 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
     repeats of its last one (only the real frames' outputs are emitted);
     the first chunk is a head ramp of 8 frames whose next frame is the
     frame after it (the padding stands between them); `start_index` runs
-    on for the QP maps."""
+    on for the QP maps; the last chunk is the KFM modes' `final` one. A
+    chunk may give any number of output frames, none included (svp emits
+    5/2 frames per film frame, and its last call may hold only the frozen
+    tail)."""
     buf: list = []
     prev_planes = None  # last source frame of the previous batch
     start = 0
@@ -302,6 +337,7 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
             prev = None if prev_planes is None else prev_planes[p]
             if fg.mode in FilterGraph.KFM_FAMILY:
                 outs.append(fg.run_kfm_batch(arr, prev, start, plane=p,
+                                             final=next_planes is None,
                                              n_real=n_real))
                 continue
             res = fg.run_pass3(

@@ -284,3 +284,71 @@ def to_10bit(frames: list, seed: int) -> list:
     return [tuple((p.astype(np.uint16) << 2)
                   | rng.integers(0, 4, p.shape, dtype=np.uint16)
                   for p in planes) for planes in frames]
+
+
+# ---------------------------------------------------------------------------
+# a clip for logo generation (models.logo.LogoAnalyzer)
+# ---------------------------------------------------------------------------
+
+# name -> frame size, the logo's box, the scan region around it (x, y, w,
+# h: a user's choice, so its width is not a multiple of anything but 2,
+# which 4:2:0 needs) and the frame count. "broadcast" holds a 96x256 logo
+# at the place of the recorded clips' and gives the analyzer more than
+# 1000 frames to keep.
+LOGO_SCAN_CLIPS = {
+    "small": dict(h=96, w=128, lh=16, lw=24, lx=88, ly=16,
+                  region=(80, 8, 40, 32), n=300, seed=7),
+    "broadcast": dict(h=1080, w=1440, lh=96, lw=256, lx=1120, ly=40,
+                      region=(1104, 24, 290, 128), n=1280, seed=8),
+}
+LOGO_SCAN_ON = 0.8  # share of frames with the logo on
+
+
+def scan_logo_alpha(h: int, w: int) -> np.ndarray:
+    """The scan clip's logo opacity: it fades to nothing well inside its
+    box, so that the scan region's border stays flat (as
+    tests/test_models_logo.py builds its logo)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    r = np.hypot((yy - h / 2) / (h / 2), (xx - w / 2) / (w / 2))
+    return (np.clip(1.0 - 1.45 * r, 0, 1) * 0.35).astype(np.float32)
+
+
+def logo_scan_clip(name: str):
+    """(open_frames, num_frames, format, region (x, y, w, h), truth) of one
+    size of the logo scan clip; open_frames() starts a fresh lazy pass of
+    (Y, U, V) uint8 planes. Every frame is a flat background of its own
+    level (luma 30-140, chroma 122-130), with mild noise (sd 0.6 in luma,
+    0-2 in chroma) over the scan region, and in about LOGO_SCAN_ON of the
+    frames the logo (blended toward 200) over it. truth: the logo's A, B
+    and opacity over the region (A = 1, B = 0 off the logo)."""
+    spec = LOGO_SCAN_CLIPS[name]
+    h, w, lh, lw = spec["h"], spec["w"], spec["lh"], spec["lw"]
+    rx, ry, rw, rh = spec["region"]
+    oy, ox = spec["ly"] - ry, spec["lx"] - rx
+    alpha = np.zeros((rh, rw), np.float32)
+    alpha[oy:oy + lh, ox:ox + lw] = scan_logo_alpha(lh, lw)
+    a_true, b_true = _ab(alpha, LOGO_COLORS[0])
+
+    def open_frames():
+        rng = np.random.default_rng(spec["seed"])
+        for _ in range(spec["n"]):
+            bg = int(rng.integers(30, 141))
+            on = rng.random() < LOGO_SCAN_ON
+            y = np.full((h, w), bg, np.uint8)
+            win = np.full((rh, rw), float(bg))
+            if on:
+                win = (1 - alpha) * win + alpha * LOGO_COLORS[0]
+            draws = rng.integers(0, 256, (4, rh, rw), dtype=np.uint8)
+            win += (draws.sum(axis=0, dtype=np.int32) - 510) * NOISE_SCALE
+            y[ry:ry + rh, rx:rx + rw] = np.clip(np.rint(win), 0, 255)
+            chroma = []
+            for _plane in range(2):
+                base = 122 + int(rng.integers(0, 9))
+                c = np.full((h // 2, w // 2), base, np.uint8)
+                c[ry // 2:(ry + rh) // 2, rx // 2:(rx + rw) // 2] += \
+                    rng.integers(0, 3, (rh // 2, rw // 2), dtype=np.uint8)
+                chroma.append(c)
+            yield y, chroma[0], chroma[1]
+
+    truth = dict(a_y=a_true, b_y=b_true, alpha=alpha)
+    return open_frames, spec["n"], video_format(h, w), spec["region"], truth

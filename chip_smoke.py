@@ -50,9 +50,10 @@ result line):
    zones, timecode text and every frame digest equal;
 8. "post chain": deband's threefry selection field on the card bit-equal to
    the CPU; each post op (deblock, temporal NR, deband, edge level, the
-   Lanczos3 resize, the motion-adaptive bob) on the card against the
-   port's CPU version on 4 frames, and its time per 32x1080x1440 batch
-   beside its bytes bound; five configurations through run_filter_stage at
+   Lanczos3 resize, svp's mc_frame_interp: bit-equal; the motion-adaptive
+   bob: within 1e-3) on the card against the port's CPU version on 4
+   frames, and its time per 32x1080x1440 batch beside its bytes bound;
+   five configurations through run_filter_stage at
    full width, the counts set to 0 just before each and read just after
    (yadif + deblock,nr,deband,edge + resize to 1280x720 and kfm_vfr +
    deblock,nr with seeded QP maps, yadif60 with both parities of the
@@ -60,10 +61,23 @@ result line):
    a 3840x2160 10-bit clip in mode none + nr,deband,edge, uint16 out):
    frames out, launches, seconds per pass, frames/s without the sink's
    hashing, peak device memory; one yadif + chain run under the profiler;
-   the configurations of utils/golden.py over the 96x128 clip against
-   testdata/golden_post.npz (written by tests/test_torch_post_chain.py) and
-   against the CPU. Kernel A's checks in phase 2 include the bottom parity
-   (bit-equal, the rotation identity, its timings).
+   the configurations of utils/golden.py over the 96x128 clip (svp and
+   svp + nr among them) against testdata/golden_post.npz (written by
+   tests/test_torch_post_chain.py) and bit-equal to the CPU. Kernel A's
+   checks in phase 2 include the bottom parity (bit-equal, the rotation
+   identity, its timings);
+9. "svp, autovfr, logo generation": K3 at logo generation's shapes (64
+   windows of 128x290 and of 128x291, 20 fades; both entries, both places
+   of its values) against its plain version, scores and every window's
+   best fade; svp over the main clip (frames out, rate, frames/s; the
+   first two batches' luma bit-equal to the CPU); autovfr over the
+   1440x1080 broadcast layout, the analysis at parallel 1 and the whole
+   stage at parallel 2 (decisions equal to each other and to kfm_vfr's
+   single stream, .def and logs, one costs launch per section batch from
+   two threads, frames/s); LogoAnalyzer over the 1440x1080 logo scan clip
+   (over 1000 frames kept, K3 at 20 fades, A and B against the truth,
+   seconds per pass); the 96x128 records of autovfr and logo generation
+   (testdata/golden_autovfr.json, golden_logo.npz).
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -1022,6 +1036,7 @@ def cm_phase(dev) -> dict:
     out["profile"] = profile_cm_pass(dev)
     cm_golden(dev)
     out["stage"] = cm_filter_stage(dev, cm)
+    out["result"] = cm  # the autovfr stage of phase 9 erases its logo
     return out
 
 
@@ -1030,7 +1045,9 @@ def cm_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 POST_FRAMES = 96  # of the main clip, for the 1440x1080 configurations
-UHD_H, UHD_W, UHD_FRAMES = 2160, 3840, 64  # the 10-bit configuration
+# the 10-bit configuration (32 frames since the svp, autovfr and logo
+# generation phase came: one batch, within the run's time)
+UHD_H, UHD_W, UHD_FRAMES = 2160, 3840, 32
 
 
 def make_uhd_clip_10bit(n, h, w, seed, device) -> list:
@@ -1087,16 +1104,21 @@ def post_op_bytes(b, h, w) -> dict:
             "resize_lanczos3": f + 4 * b * oh * ow
             + 4 * (h * oh + w * ow),
             # B + 2 distinct frames in, 2B out
-            "motion_adaptive_bob": 4 * (b + 2) * h * w + 2 * f}
+            "motion_adaptive_bob": 4 * (b + 2) * h * w + 2 * f,
+            # two frames in per output frame (a and b), one out
+            "mc_frame_interp": 3 * f}
 
 
 def check_post_ops(dev, clip) -> dict:
     """Each post-chain op (and the resize and the motion-adaptive bob) on
     the card against the port's CPU version on 4 frames of the main clip's
-    luma (bit-equal where the CPU tests find them bit-equal to the JAX
-    package; else within 1e-3 in the 8-bit domain and one code value after
-    rounding), then its time on the card per 32x1080x1440 batch (CUDA
-    events, median of 3 windows) beside its bytes bound."""
+    luma: bit-equal, but for the motion-adaptive bob (within 1e-3 in the
+    8-bit domain and one code value after rounding). deblock's and the
+    resize's sums run in one fixed order of separate operations, and
+    edge level's and deblock's emulated FMAs in float64, so the card gives
+    the CPU's bits. Then its time on the card per 32x1080x1440 batch (CUDA
+    events, median of 3 windows) beside its bytes bound; mc_frame_interp
+    (svp) at the time fraction 0.4 between consecutive frames."""
     from amatsukaze_tpu_torch.ops import deint, denoise
     from amatsukaze_tpu_torch.ops.resize import resize_lanczos3
     from amatsukaze_tpu_torch.utils import synth_clip
@@ -1108,16 +1130,18 @@ def check_post_ops(dev, clip) -> dict:
         """name -> (call on frames x [B+2, H, W] 8-bit domain, exact)."""
         mid = x[1:-1]
         return {
-            "deblock_qp": (lambda: denoise.deblock_qp(mid, q[1:-1]), False),
+            "deblock_qp": (lambda: denoise.deblock_qp(mid, q[1:-1]), True),
             "temporal_nr": (lambda: denoise.temporal_nr(mid * 64.0) / 64.0,
                             True),
             "deband": (lambda: denoise.deband(mid * 64.0, 0) / 64.0, True),
             "edge_level": (lambda: denoise.edge_level(mid * 64.0) / 64.0,
-                           False),
+                           True),
             "resize_lanczos3": (lambda: resize_lanczos3(mid, 720, 1280),
-                                False),
+                                True),
             "motion_adaptive_bob": (lambda: deint.motion_adaptive_bob(
                 x[:-2], mid, x[2:], True), False),
+            "mc_frame_interp": (lambda: deint.mc_frame_interp(
+                mid, x[2:], 0.4), True),
         }
 
     small = ops(luma[:6], qp[:6])
@@ -1252,8 +1276,10 @@ def profile_post(dev, clip, logos) -> dict:
 def post_golden(dev) -> None:
     """The configurations of utils.golden.POST_CONFIGS over the recorded
     96x128 clip on the card: against the JAX package's frames
-    (testdata/golden_post.npz) and against the port on the CPU, each by
-    the rules of utils.golden (the counts of samples apart are printed)."""
+    (testdata/golden_post.npz) by the rules of utils.golden (the count of
+    samples one code value apart is printed), and bit-equal to the port on
+    the CPU (every op of these paths is a fixed sequence of separate
+    operations)."""
     from amatsukaze_tpu_torch.utils import golden, synth_clip
 
     recorded = golden.load_post()
@@ -1270,21 +1296,16 @@ def post_golden(dev) -> None:
             runs.append((sink.frames, secs, read_counts()))
         (card, secs, counts), (cpu, _, _) = runs
         vs_jax = golden.assert_post_record(card, recorded[name], name)
-        if cfg.get("exact"):
-            if golden.post_digests(card) != golden.post_digests(cpu):
-                raise AssertionError(f"{name}: card differs from the CPU")
-            vs_cpu = (0, 0)
-        else:
-            vs_cpu = golden.assert_post_matches(
+        if golden.post_digests(card) != golden.post_digests(cpu):
+            n = golden.assert_post_matches(
                 golden.stack_planes(card), golden.stack_planes(cpu),
-                f"{name} card vs cpu", cfg.get("flips", False))
+                f"{name} card vs cpu", 1.0)
+            raise AssertionError(f"{name}: {n} samples of the card differ "
+                                 f"from the CPU")
         log(f"golden post {name}: 96x128, {len(card)} frames out, {secs:.3f}"
-            f" s, launches {counts}; "
-            + ("bit-equal to the JAX record and to the CPU"
-               if cfg.get("exact") else
-               f"vs the JAX record {vs_jax[0]} samples one code value apart"
-               f" and {vs_jax[1]} more, vs the CPU {vs_cpu[0]} and "
-               f"{vs_cpu[1]}"))
+            f" s, launches {counts}; bit-equal to the CPU and "
+            + ("to the JAX record" if cfg.get("exact") else
+               f"{vs_jax} samples one code value from the JAX record"))
 
 
 def post_phase(dev, clip, logos) -> dict:
@@ -1296,6 +1317,342 @@ def post_phase(dev, clip, logos) -> dict:
     out["configs"] = run_post_configs(dev, clip, logos)
     out["profile"] = profile_post(dev, clip, logos)
     post_golden(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the svp and autovfr modes and logo generation
+# ---------------------------------------------------------------------------
+
+GEN_FADES = 20  # LogoAnalyzer.NUM_FADE
+GEN_BATCH = 64  # LogoAnalyzer's batch
+
+
+def check_logo_eval_generation(dev) -> None:
+    """K3 at logo generation's shapes: 64 windows of the 1440x1080 scan
+    clip's 128x290 region, and the same widened to 291 columns (an odd
+    width), at 20 fades (two fade groups of the kernel's blocks). Both
+    entries and both places of the kernel values (registers, shared
+    memory), each against the plain version on the card: scores within
+    rtol/atol 1e-5 (another order of the masked sum), the best fade
+    (argmin of |score|) of every window equal, two runs bit-identical."""
+    from amatsukaze_tpu_torch.ops import logo as lops
+    from amatsukaze_tpu_torch.ops import logo_eval
+    from amatsukaze_tpu_torch.ops.logo_ref import LogoEvalRef
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    open_frames, _, _, (rx, ry, rw, rh), truth = synth_clip.logo_scan_clip(
+        "broadcast")
+    ys = []
+    for y, _, _ in open_frames():
+        ys.append(y[ry:ry + rh, rx:rx + rw + 1])
+        if len(ys) == GEN_BATCH:
+            break
+    fades = torch.from_numpy(np.arange(GEN_FADES, dtype=np.float32)
+                             * np.float32(0.1)).to(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for width in (rw, rw + 1):
+        a = np.ones((rh, width), np.float32)
+        b = np.zeros((rh, width), np.float32)
+        a[:, :rw], b[:, :rw] = truth["a_y"], truth["b_y"]
+        da = lops.batched_deint_logo(torch.from_numpy(a)).numpy()
+        db = lops.batched_deint_logo(torch.from_numpy(b)).numpy()
+        params = lops.LogoEvalParams.from_ref(LogoEvalRef(da, db, 0.1), dev)
+        raw = torch.from_numpy(np.ascontiguousarray(
+            np.stack(ys)[:, :, :width])).to(dev)
+        deint = lops.batched_deint_y(raw.float())
+        want = lops.batched_evaluate_logo(params, deint, 255.0, fades)
+        best = want.abs().argmin(dim=1)
+        m = params.pos.shape[0]
+        blocks = GEN_BATCH * m * -(-GEN_FADES // logo_eval.FADES_PER_BLOCK)
+        default_regs = blocks <= logo_eval.THREADS_PER_SM_IN_REGISTERS * n_sm
+        worst = 0.0
+        for in_regs in (True, False):
+            for name, x in (("float32", deint), ("uint8", raw)):
+                got = logo_eval.launch_kernel(params, x, 255.0, fades,
+                                              kernels_in_registers=in_regs)
+                again = logo_eval.launch_kernel(params, x, 255.0, fades,
+                                                kernels_in_registers=in_regs)
+                torch.cuda.synchronize()
+                what = (f"logo_eval {GEN_BATCH}x{GEN_FADES}x{rh}x{width} "
+                        f"{name}, values in "
+                        f"{'registers' if in_regs else 'shared memory'}")
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two runs differ")
+                if not torch.equal(got.abs().argmin(dim=1), best):
+                    raise AssertionError(f"{what}: another best fade")
+                worst = max(worst, (got - want).abs().max().item())
+        if width == rw:  # the analyzer's shape: time it
+            time_logo_eval_generation(params, raw, fades)
+        log(f"check logo_eval at {GEN_BATCH}x{GEN_FADES} fades x {rh}x"
+            f"{width} ({params.n_items} masked pixels, {m // params.chunk} "
+            f"chunks; the wrapper picks the values in "
+            f"{'registers' if default_regs else 'shared memory'}): both "
+            f"entries and both places against the plain version, max abs err"
+            f" {worst:.3g}, every window's best fade equal "
+            f"({int((best > 8).sum())} above 8), two runs bit-identical")
+
+
+def time_logo_eval_generation(params, raw, fades) -> dict:
+    """K3's uint8 entry at logo generation's shape (warm: the analyzer
+    uploads a 2.4 MB batch of crops), its plain version, and the bound as
+    check_logo_eval counts it."""
+    from amatsukaze_tpu_torch.ops import logo as lops
+    from amatsukaze_tpu_torch.ops import logo_eval
+
+    b, h, w = raw.shape
+    n_fades = fades.shape[0]
+    t = time_ms(lambda i: logo_eval.evaluate_logo_u8(params, raw, 255.0,
+                                                     fades), 50)
+    plain = time_ms(lambda i: lops.batched_deint_evaluate_logo(
+        params, raw, 255.0, fades), 3, repeats=3)
+    near = torch.nn.functional.max_pool2d(params.mask[None, None], 5, 1, 2)
+    n_near = int(near.sum().item())
+    n_mask = params.n_items
+    n_ops = b * (3 * n_near + n_fades * (3 * n_near + 106 * n_mask))
+    n_bytes = b * h * w + 4 * (2 * h * w + 91 * n_mask + n_fades
+                               + b * n_fades)
+    bd, by = bound_ms(n_bytes, n_ops, fma=False)
+    log(f"time logo_eval_u8 at {b}x{n_fades}x{h}x{w}: {t} ms warm; plain "
+        f"{plain['ms']:.3f} ms; bound {bd:.4f} ms ({by})")
+    return dict(ms=t["ms"], plain_ms=plain["ms"], bound_ms=bd, bound_by=by)
+
+
+def svp_path(dev, clip, fmt, logos) -> dict:
+    """run_filter_stage in mode svp over the main clip, the counts set to 0
+    just before and read just after: (n_film * 5 + 1) // 2 frames out at
+    60000/1001; then the svp synthesis of the first two batches' luma (of
+    16 frames, so that the CPU's share stays short) on the card and on the
+    CPU with the same plan: bit-equal."""
+    from amatsukaze_tpu_torch.models.filter_graph import FilterGraph
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    reset_counts()
+    res, sink, secs = run_stage(clip, fmt, logos, "svp", dev)
+    counts = read_counts()
+    n_film = len(res.graph.vfr_plan.durations)
+    want = (n_film * 5 + 1) // 2
+    if not len(sink.digests) == res.spec.num_out_frames == want:
+        raise AssertionError(f"svp: {len(sink.digests)} frames out, spec "
+                             f"{res.spec.num_out_frames}, want {want}")
+    rate = (res.spec.out_format.frame_rate_num,
+            res.spec.out_format.frame_rate_denom)
+    if rate != (60000, 1001) or res.spec.time_codes:
+        raise AssertionError(f"svp: output rate {rate}")
+    if counts.get("costs", 0) <= 0 or counts.get("logo_eval", 0) <= 0:
+        raise AssertionError(f"svp: launches {counts}")
+    outs = []
+    t0 = time.perf_counter()
+    for where in (dev, torch.device("cpu")):
+        fg = FilterGraph(AMTContext(level="warn"), mode="svp", batch=BATCH,
+                         device=where)
+        fg.decisions, fg.vfr_plan = res.graph.decisions, res.graph.vfr_plan
+        got, prev = [], None
+        for s0 in (0, BATCH // 2):
+            chunk = np.stack([f[0] for f in clip[s0:s0 + BATCH // 2]])
+            got.append(fg.run_kfm_batch(chunk, prev, s0, plane=0)
+                       .materialize())
+            prev = chunk[-1]
+        outs.append(np.concatenate(got))
+    if not np.array_equal(outs[0], outs[1]):
+        n = int((outs[0] != outs[1]).sum())
+        raise AssertionError(f"svp: {n} samples of the card differ from the "
+                             f"CPU")
+    info = dict(frames=len(clip), film_frames=n_film,
+                out_frames=len(sink.digests), seconds=secs,
+                pass_seconds=res.seconds, fps=len(clip) / secs,
+                fps_without_sink=len(clip) / (secs - sink.seconds),
+                sink_seconds=sink.seconds, launches=counts)
+    log(f"svp: {len(clip)} frames ({n_film} film frames) -> "
+        f"{len(sink.digests)} frames at 60000/1001 in {secs:.3f} s = "
+        f"{info['fps']:.2f} source frames/s ({info['fps_without_sink']:.2f} "
+        f"without the sink's {sink.seconds:.3f} s; passes {res.seconds}); "
+        f"launches {counts}; the first two batches' luma ("
+        f"{len(outs[0])} frames) bit-equal to the CPU "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return info
+
+
+def autovfr_path(dev, cm) -> dict:
+    """The 1340-frame 1440x1080 broadcast layout in mode autovfr: its frames
+    decoded once into host RAM, so that a section seeks as a real decoder
+    does. The sectioned analysis alone at parallel 1, then the whole stage
+    at parallel 2 (the JAX package's default; the CM pass's logo erased on
+    output), each with the counts set to 0 just before and read just
+    after: cycle decisions equal to each other and to kfm_vfr's
+    single-stream analysis of the same frames, the .def files equal, one
+    log per section, exactly one costs launch per batch of every section
+    (two threads count into one counter)."""
+    import tempfile
+    from pathlib import Path
+
+    from amatsukaze_tpu_torch.models.filter_graph import FilterGraph
+    from amatsukaze_tpu_torch.pipeline.filter_stage import run_filter_stage
+    from amatsukaze_tpu_torch.utils import synth_clip
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    open_frames, n, fmt, logos, _ = synth_clip.broadcast_clip("broadcast")
+    t0 = time.perf_counter()
+    frames = list(open_frames())
+    made = time.perf_counter() - t0
+    luma = [f[0] for f in frames]
+
+    def open_section(start, end):
+        return iter(luma[max(0, start):end])
+
+    ref = FilterGraph(AMTContext(level="warn"), mode="kfm_vfr", batch=BATCH,
+                      device=dev)
+    ref.analyze(iter(luma), n)
+    want = [(int(d.mode), d.phase) for d in ref.decisions]
+    out = {"made_seconds": made}
+    defs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for par in (1, 2):
+            prefix = str(Path(d) / f"p{par}")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if par == 1:
+                fg = FilterGraph(AMTContext(level="warn"), mode="autovfr",
+                                 batch=BATCH, device=dev)
+                fg.analyze_autovfr(open_section, n, parallel=par,
+                                   log_prefix=prefix)
+                sink, passes = None, None
+            else:
+                sink = Sink(((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+                res = run_filter_stage(
+                    AMTContext(level="warn"), lambda: iter(frames), n, fmt,
+                    logos, "autovfr", sink, batch=BATCH, device=dev, cm=cm,
+                    open_section=open_section, autovfr_parallel=par,
+                    autovfr_prefix=prefix)
+                fg, passes = res.graph, res.seconds
+                if len(sink.digests) != res.spec.num_out_frames or \
+                        res.spill_frames:
+                    raise AssertionError(f"autovfr: {len(sink.digests)} "
+                                         f"frames out, spill "
+                                         f"{res.spill_frames}")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            got = [(int(x.mode), x.phase) for x in fg.decisions]
+            if got != want:
+                raise AssertionError(f"autovfr parallel {par}: decisions "
+                                     f"differ from the single stream")
+            per = -(-n // par)
+            per += (-per) % 5
+            sections = [(s0, min(s0 + per, n)) for s0 in range(0, n, per)]
+            launches = sum(-(-(e - s0 + (s0 > 0)) // BATCH)
+                           for s0, e in sections)
+            if counts.get("costs") != launches or any(
+                    k not in ("costs", "logo_eval") for k in counts):
+                raise AssertionError(f"autovfr parallel {par}: launches "
+                                     f"{counts}, want {launches} costs")
+            logs = sorted(p.name for p in Path(d).glob(f"p{par}.autovfr*.log"))
+            defs[par] = Path(f"{prefix}.autovfr.def").read_text()
+            if len(logs) != len(sections):
+                raise AssertionError(f"autovfr parallel {par}: logs {logs}")
+            info = dict(seconds=secs, fps=n / secs, sections=sections,
+                        launches=counts, pass_seconds=passes,
+                        sink_seconds=sink.seconds if sink else None,
+                        out_frames=len(sink.digests) if sink else None)
+            out[f"parallel_{par}"] = info
+            what = "the whole stage" if sink else "the analysis"
+            log(f"autovfr parallel {par} ({what}): {n} frames in "
+                f"{secs:.3f} s = {info['fps']:.2f} frames/s"
+                + (f" (passes {passes}, of which the test sink "
+                   f"{sink.seconds:.3f} s; {len(sink.digests)} frames out)"
+                   if sink else "")
+                + f"; sections {sections}, launches {counts}; decisions = "
+                f"kfm_vfr's single stream ({len(want)} cycles)")
+    if defs[1] != defs[2] or len(defs[1].splitlines()) < 3:
+        raise AssertionError("autovfr: the .def files differ")
+    log(f"autovfr: frames made in {made:.2f} s; .def equal at parallel 1 "
+        f"and 2: {defs[1].splitlines()[1:]}")
+    return out
+
+
+def logo_generation(dev) -> dict:
+    """LogoAnalyzer over the 1440x1080 logo scan clip (1280 frames, a
+    96x256 logo in a 128x290 region), the counts set to 0 just before and
+    read just after: over 1000 frames kept, K3 launched once per 64 kept
+    frames in each refinement pass (20 fades) and nothing else, A and B on
+    the logo's core within the JAX package's test bounds of the truth;
+    seconds per pass."""
+    from amatsukaze_tpu_torch.models.logo import LogoAnalyzer, ScanRegion
+    from amatsukaze_tpu_torch.utils import synth_clip
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    open_frames, n, fmt, region, truth = synth_clip.logo_scan_clip(
+        "broadcast")
+    an = LogoAnalyzer(AMTContext(level="warn"), ScanRegion(*region),
+                      batch=GEN_BATCH, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg = an.scan(open_frames(), fmt.width, fmt.height, name="synth")
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    kept = len(an.frames_y)
+    want = 2 * -(-kept // GEN_BATCH)
+    if kept < 1000 or counts != {"logo_eval": want}:
+        raise AssertionError(f"logo generation: {kept} frames kept, "
+                             f"launches {counts}, want {want}")
+    core = truth["alpha"] > 0.15
+    err_a = float(np.abs(lg.a_y - truth["a_y"])[core].max())
+    err_b = float(np.abs(lg.b_y - truth["b_y"])[core].max())
+    if not (err_a < 0.08 and err_b < 0.04):
+        raise AssertionError(f"logo generation: A off by {err_a}, B by "
+                             f"{err_b}")
+    selected = [int((m > 8).sum()) for m in an.min_fades]
+    out = dict(frames=n, kept=kept, selected=selected, seconds=secs,
+               pass_seconds=dict(an.seconds), launches=counts,
+               a_err=err_a, b_err=err_b)
+    log(f"logo generation: {n} frames {fmt.width}x{fmt.height}, region "
+        f"{region}: {kept} "
+        f"kept, {selected} selected in the refinements; {secs:.3f} s "
+        f"(per pass {an.seconds}); launches {counts}; A within {err_a:.4f} "
+        f"and B within {err_b:.4f} of the truth on the logo's core")
+    return out
+
+
+def modes_golden(dev) -> None:
+    """The 96x128 records of autovfr (testdata/golden_autovfr.json, at
+    parallel 1, 2 and 3) and of logo generation (testdata/golden_logo.npz)
+    on the card. svp's are in post_golden."""
+    from amatsukaze_tpu_torch.models.filter_graph import FilterGraph
+    from amatsukaze_tpu_torch.models.logo import LogoAnalyzer, ScanRegion
+    from amatsukaze_tpu_torch.utils import golden, synth_clip
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    runs = golden.autovfr_runs(lambda: FilterGraph(
+        AMTContext(level="warn"), mode="autovfr",
+        batch=golden.AUTOVFR_BATCH, device=dev))
+    for par, run in runs.items():
+        if run != golden.load_autovfr()[par]:
+            raise AssertionError(f"golden autovfr parallel {par}")
+    log(f"golden autovfr: 96x128 broadcast layout, parallel "
+        f"{golden.AUTOVFR_PARALLEL}: decisions, sections, .def and logs "
+        f"equal the JAX record")
+    open_frames, n, fmt, region, _ = synth_clip.logo_scan_clip(
+        golden.LOGO_CLIP)
+    an = LogoAnalyzer(AMTContext(level="warn"), ScanRegion(*region),
+                      batch=GEN_BATCH, device=dev)
+    an.scan(open_frames(), fmt.width, fmt.height, name="recovered",
+            service_id=5)
+    moved = golden.assert_logo_matches(golden.logo_record(an),
+                                       golden.load_logo(), "golden logo")
+    log(f"golden logo: 96x128 scan clip, {len(an.frames_y)} frames kept: "
+        f"both refinements keep the recorded frames ({moved} best fades "
+        f"moved), A and B within {golden.LOGO_AB_TOL} of the JAX record")
+
+
+def modes_phase(dev, clip, fmt, logos, cm) -> dict:
+    check_logo_eval_generation(dev)
+    out = {"svp": svp_path(dev, clip, fmt, logos),
+           "autovfr": autovfr_path(dev, cm),
+           "logo": logo_generation(dev)}
+    modes_golden(dev)
     return out
 
 
@@ -1352,6 +1709,11 @@ def main() -> int:
     post = post_phase(dev, clip, logos)
     log(f"phase post chain: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    modes = modes_phase(dev, clip, fmt, logos, cm["result"])
+    log(f"phase svp, autovfr, logo generation: "
+        f"{time.perf_counter() - t0:.2f} s")
+
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
         ("yadif_fieldmatch[yadif]", "yadif_fieldmatch.cu",
@@ -1364,11 +1726,17 @@ def main() -> int:
         ("yadif_fieldmatch[costs]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:716",
          main["kfm_vfr"]["launches"].get("costs", 0)
-         + cm["stage"]["launches"]["costs"], checks["costs_y"]),
+         + cm["stage"]["launches"]["costs"]
+         + modes["svp"]["launches"]["costs"]
+         + sum(modes["autovfr"][f"parallel_{p}"]["launches"]["costs"]
+               for p in (1, 2)), checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
          + main["yadif"]["launches"]["logo_eval"]
-         + cm["launches"]["logo_eval"], checks["logo_eval_u8_f11"]),
+         + cm["launches"]["logo_eval"]
+         + modes["svp"]["launches"]["logo_eval"]
+         + modes["logo"]["launches"]["logo_eval"],
+         checks["logo_eval_u8_f11"]),
     ]
     kernels = []
     for n, src, rep, launches, c in rows:

@@ -18,6 +18,7 @@ from types import SimpleNamespace
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 import torch
 
 from amatsukaze_tpu.models import chapter as jchapter

@@ -12,6 +12,7 @@ one code value apart.
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 import torch
 
 import jax.numpy as jnp

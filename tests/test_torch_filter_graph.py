@@ -7,6 +7,7 @@ and every output plane bit-equal."""
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 import torch
 
 import amatsukaze_tpu.models.logo as jlogo_model
@@ -208,14 +209,13 @@ def test_mode_none_passes_frames_through(clip):
 
 @pytest.mark.parametrize("mode", ["yadif60", "qtgmc", "svp", "autovfr"])
 def test_unported_modes_raise(mode):
-    """The modes of the JAX package that the port lacks raise; yadif60 and
-    qtgmc are ported."""
-    assert FilterGraph.NOT_PORTED == ("svp", "autovfr")
-    if mode not in FilterGraph.NOT_PORTED:
-        assert FilterGraph(AMTContext(), mode=mode, device="cpu").mode == mode
-        return
-    with pytest.raises(NotImplementedError):
-        FilterGraph(AMTContext(), mode=mode, device="cpu")
+    """No mode of the JAX package is left unported: the port accepts all
+    nine (these four were the last to come), the same modes and families
+    as the JAX package."""
+    assert not hasattr(FilterGraph, "NOT_PORTED")
+    assert FilterGraph.ALL_MODES == JFilterGraph.ALL_MODES
+    assert FilterGraph.KFM_FAMILY == JFilterGraph.KFM_FAMILY
+    assert FilterGraph(AMTContext(), mode=mode, device="cpu").mode == mode
 
 
 def test_unknown_mode_and_short_clip():

@@ -8,6 +8,7 @@ sums in another order)."""
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 import amatsukaze_tpu.models.logo as jlogo_model
 from amatsukaze_tpu.models.filter_graph import FilterGraph as JFilterGraph

@@ -9,6 +9,7 @@ import itertools
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 import torch
 
 import jax.numpy as jnp

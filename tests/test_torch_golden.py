@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")  # for the script run
 sys.path.insert(0, str(Path(__file__).resolve().parent))

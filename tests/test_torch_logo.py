@@ -11,6 +11,7 @@ the scores within 1e-5 (another order of the masked sum)."""
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 import torch
 
 import jax.numpy as jnp
