@@ -19,8 +19,9 @@ kfm_vfr30, kfm_cfr24, svp (24p film interpolated to smooth 60p by
 ops.deint.mc_frame_interp) and autovfr (the KFM analysis in cycle-aligned
 sections run on host threads, parallel/ordered.py, with the AutoVfr flow's
 log and .def files). The output is rounded on the device to uint8, or to
-uint16 at src_bits 10 (mode none with a post chain: the Main10 path). The
-JAX package's multi-chip mesh is not ported yet.
+uint16 at src_bits 10 (mode none with a post chain: the Main10 path).
+`set_mesh` shards the device paths over several devices
+(parallel/sharded_filter.py), as `--devices N` does in the JAX package.
 
 Where yadif feeds a post chain or a resize, the port follows the JAX
 package's production (TPU) path: the kernel's rounded uint8 frames feed the
@@ -28,6 +29,9 @@ chain (the JAX package's CPU path feeds its unrounded float yadif). yadif60
 and qtgmc never reach a Pallas kernel in the JAX package, so their float
 frames feed the chain unrounded here too; yadif60 takes the kernel (one
 launch per field parity) only when nothing but the final rounding follows.
+On the mesh path yadif never reaches the kernel before a chain or a resize,
+in the JAX package too: the sharded float yadif feeds them, so there a
+yadif + chain output differs from the single-device one.
 """
 
 from __future__ import annotations
@@ -140,6 +144,33 @@ class FilterGraph:
         # svp: plane -> (last film frame on the device, its film index, its
         # source index), so that interpolation pairs bridge batches
         self._svp_carry: dict = {}
+        # set_mesh: the device paths sharded over a parallel.mesh.Mesh
+        self.mesh = None
+        self._mesh_backend = None
+
+    def set_mesh(self, mesh_or_ndevices) -> None:
+        """Shard the filter pass over a mesh (the JAX package's `--devices
+        N` path): costs, deinterlace and the KFM synthesis run per shard
+        (parallel/sharded_filter.py); svp's synthesis stays on one device.
+        Takes a parallel.mesh.Mesh, or a count n: the first n visible CUDA
+        devices (raises when fewer are visible), or n logical CPU shards
+        when the graph's device is the CPU."""
+        from ..parallel.mesh import Mesh, make_mesh
+        from ..parallel.sharded_filter import ShardedFilterBackend
+
+        mesh = mesh_or_ndevices
+        if not isinstance(mesh, Mesh):
+            n = int(mesh)
+            if self.device.type == "cpu":
+                mesh = make_mesh([self.device] * n)
+            else:
+                visible = torch.cuda.device_count()
+                if visible < n:
+                    raise RuntimeError(f"--devices {n}: only {visible} CUDA "
+                                       f"devices visible")
+                mesh = make_mesh([torch.device("cuda", i) for i in range(n)])
+        self.mesh = mesh
+        self._mesh_backend = ShardedFilterBackend(mesh)
 
     def debug_dump(self, num_frames: int) -> dict:
         """JSON-able description of the configured graph and its analysis
@@ -220,14 +251,22 @@ class FilterGraph:
         next one its predecessor: its own row is dropped."""
         carry = None  # last frame of the previous batch for cross-batch match
         for chunk in batched(frame_iter, self.batch):
-            arr = torch.from_numpy(normalize_u8(np.stack(chunk))).to(
-                self.device)
-            arr_in = arr if carry is None else torch.cat([carry[None], arr])
-            _, c = fused_filter.yadif_fieldmatch(
-                arr_in, write_frames=False, with_costs=True)
-            if carry is not None or halo:
+            host = normalize_u8(np.stack(chunk))
+            had_carry = carry is not None
+            if self._mesh_backend is not None:
+                c = self._mesh_backend.field_match_costs(
+                    host if carry is None
+                    else np.concatenate([carry[None], host]))
+                carry = host[-1]
+            else:
+                arr = torch.from_numpy(host).to(self.device)
+                arr_in = arr if carry is None else torch.cat([carry[None],
+                                                              arr])
+                _, c = fused_filter.yadif_fieldmatch(
+                    arr_in, write_frames=False, with_costs=True)
+                carry = arr[-1]
+            if had_carry or halo:
                 c = c[1:]  # the carried frame's row, or the halo frame's
-            carry = arr[-1]
             halo = False
             yield c
 
@@ -362,14 +401,16 @@ class FilterGraph:
             out.num_out_frames = num_src_frames
         return out
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        # frames cross to the device at source dtype (uint8, or 10-bit
-        # samples as int16) and widen there
+    def _host_frames(self, frames: np.ndarray) -> np.ndarray:
+        """Frames at the source dtype they cross to the device in: uint8,
+        or 10-bit samples as int16."""
         if self.src_bits > 8:
-            arr = np.ascontiguousarray(frames, np.uint16).view(np.int16)
-        else:
-            arr = np.ascontiguousarray(normalize_u8(frames))
-        return torch.from_numpy(arr).to(self.device)
+            return np.ascontiguousarray(frames, np.uint16).view(np.int16)
+        return np.ascontiguousarray(normalize_u8(frames))
+
+    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+        # frames cross to the device at source dtype and widen there
+        return torch.from_numpy(self._host_frames(frames)).to(self.device)
 
     def _apply_post(self, out: torch.Tensor, src_indices,
                     plane_h: int) -> torch.Tensor:
@@ -432,9 +473,22 @@ class FilterGraph:
         svp = self.mode == self.MODE_SVP
         if not entries and svp and final:
             return self._svp_emit(None, [], plane, True, frames.shape[1:])
-        arr = self._upload(frames)
         if not entries:
-            return DeferredBatch(arr[:0], 0)
+            return DeferredBatch(torch.empty(
+                (0, *frames.shape[1:]), dtype=torch.uint8,
+                device=self.device), 0)
+        if self._mesh_backend is not None and not svp:
+            # per shard: its contiguous run of entries from the source slab
+            # it was shipped; the chain runs over the padded entries
+            out, n_entries = self._mesh_backend.kfm_synth(
+                self._host_frames(frames),
+                None if prev_frame is None
+                else self._host_frames(prev_frame[None])[0],
+                [(src - start_index, op) for src, op in entries])
+            srcs = ([src for src, _ in entries]
+                    + [entries[-1][0]] * (len(out) - n_entries))
+            return self._finish(out, srcs, frames.shape[1], plane, n_entries)
+        arr = self._upload(frames)
         cur = arr.float()
         first = cur[:1] if prev_frame is None \
             else self._upload(prev_frame[None]).float()
@@ -529,9 +583,12 @@ class FilterGraph:
         frame; two, in field order, for yadif60 and qtgmc). prev/next_frame
         provide the temporal halo (None at the sequence ends); start_index
         is the batch's first source index (the QP maps' alignment)."""
-        arr = self._upload(frames)
         idx = list(range(start_index, start_index + len(frames)))
         after = self.post_chain is not None or self.resize is not None
+        if self._mesh_backend is not None:
+            return self._run_pass3_mesh(frames, prev_frame, next_frame, idx,
+                                        plane, after)
+        arr = self._upload(frames)
         if self.mode == self.MODE_NONE:
             if not after:
                 return DeferredBatch(arr, len(arr))
@@ -569,6 +626,30 @@ class FilterGraph:
                  deint_ops.yadif_deinterlace(prev, cur, nxt, False)],
                 dim=1).flatten(0, 1)
         idx = [i for i in idx for _ in range(2)]  # one QP map per field pair
+        return self._finish(out, idx, frames.shape[1], plane, len(out))
+
+    def _run_pass3_mesh(self, frames: np.ndarray, prev_frame, next_frame,
+                        idx: list, plane: int, after: bool) -> DeferredBatch:
+        """run_pass3 over the mesh (filter_graph.py:862-880 of the JAX
+        package): the sharded deinterlace, then the chain, the resize and
+        the rounding over the gathered batch. yadif and yadif60 take K1 when
+        nothing but the rounding follows."""
+        mb = self._mesh_backend
+        host = self._host_frames(frames)
+        if self.mode == self.MODE_NONE:
+            out = mb.put_batch(host)
+            if not after:
+                return DeferredBatch(out, len(out))
+            return self._finish(out.float(), idx, frames.shape[1], plane,
+                                len(out))
+        out = mb.deint(self.mode, host,
+                       *(None if f is None else self._host_frames(f[None])[0]
+                         for f in (prev_frame, next_frame)),
+                       rounded=not after)
+        if out.dtype == torch.uint8:
+            return DeferredBatch(out, len(out))
+        if self.mode in self.DOUBLE_RATE:
+            idx = [i for i in idx for _ in range(2)]
         return self._finish(out, idx, frames.shape[1], plane, len(out))
 
 

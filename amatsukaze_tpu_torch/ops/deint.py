@@ -230,6 +230,20 @@ def field_match_costs(frames: torch.Tensor) -> torch.Tensor:
                         combing_metric_fields(prev_top, bot)], dim=-1)
 
 
+def field_match_costs_from_prev(frames: torch.Tensor,
+                                prev_frame: torch.Tensor) -> torch.Tensor:
+    """field_match_costs with an explicit previous frame [H, W] (the frame
+    before frames[0]; frames[0] itself at the sequence head): equal row by
+    row to field_match_costs(cat([prev_frame[None], frames]))[1:]."""
+    top, bot = field_split(frames)
+    ptop, pbot = field_split(prev_frame[None])
+    prev_top = torch.cat([ptop, top[:-1]], dim=0)
+    prev_bot = torch.cat([pbot, bot[:-1]], dim=0)
+    return torch.stack([combing_metric_fields(top, bot),
+                        combing_metric_fields(top, prev_bot),
+                        combing_metric_fields(prev_top, bot)], dim=-1)
+
+
 # 3:2 pulldown: for each of the 5 phases of a cycle, which frames must
 # field-match with their predecessor (1) vs stand alone (0)
 _PULLDOWN_MERGE_NP = np.array(

@@ -50,6 +50,7 @@ from ..models.filter_graph import (FilterGraph, FilterOutput,
 from ..models.logo import LogoFrameMatcher
 from ..models.logo_erase import LogoEraser
 from ..models.vfr import EncoderZone
+from ..parallel.mesh import Mesh
 from ..utils.batching import pad_tail
 from .cm_stage import FADE_STEPS, FADE_STEPS_NO_DELOGO, luma_pass
 
@@ -70,6 +71,7 @@ class FilterStageResult:
     spill_frames: int = 0  # frames the output pass read from the spill
     # wall seconds of each pass over the clip; each ends in a device fetch
     seconds: dict = field(default_factory=dict)
+    shards: int = 1  # shards of the filter graph's mesh (filter_devices)
 
 
 class FrameSpill:
@@ -140,7 +142,8 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
                      dump_path: str | None = None, post_filter: str = "",
                      qp_source=None, resize=None, open_section=None,
                      autovfr_parallel: int = 2,
-                     autovfr_prefix: str | None = None) -> FilterStageResult:
+                     autovfr_prefix: str | None = None,
+                     filter_devices=1) -> FilterStageResult:
     """Run the filter core over one output file and call `sink((y, u, v))`
     with every output frame (uint8 planes; uint16 on the 10-bit path), in
     order.
@@ -173,7 +176,12 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     it the stage reads open_frames() and skips forward to `start`.
     autovfr_prefix: write the sections' logs and the .def file there. The
     frame spill is not filled in this mode: the output pass decodes and
-    erases again."""
+    erases again.
+
+    filter_devices: shard the filter graph over that many devices
+    (FilterGraph.set_mesh; an int or a parallel.mesh.Mesh), as
+    transcode.py:849-852 does with `--devices N`; one runs unsharded.
+    `result.shards` says how many shards ran."""
     if cm_zones_mode not in CM_ZONES_MODES:
         raise ValueError(f"cm_zones_mode must be one of {CM_ZONES_MODES}")
     post_chain = build_post_chain(post_filter)
@@ -215,6 +223,10 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     if resize is not None:
         fg.resize = tuple(resize)
     fg.kfm_ucf = kfm_ucf
+    shards = (filter_devices.size if isinstance(filter_devices, Mesh)
+              else int(filter_devices))
+    if shards > 1:
+        fg.set_mesh(filter_devices)
     spill = None
     if fg.mode == FilterGraph.MODE_AUTOVFR:
         fg.analyze_autovfr(open_section or _forward_opener(open_frames),
@@ -280,7 +292,7 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     seconds["output"] = time.perf_counter() - t0
     return FilterStageResult(matcher, best, fade, fg, spec, n_out, zones,
                              len(spill.frames) if spill is not None else 0,
-                             seconds)
+                             seconds, max(1, shards))
 
 
 def _forward_opener(open_frames):

@@ -1,2 +1,22 @@
-"""Transport-stream side of the port: so far the QP-map container that
-feeds the deblock post filter."""
+"""Transport-stream layer: packets, PES, PSI, the splitter and its ES
+parsers, and the QP maps that feed the deblock post filter (copies of
+amatsukaze_tpu/ts; ts/info.py waits for the captions layer)."""
+
+from .packet import TS_PACKET_LENGTH, TsPacket, TsPacketParser
+from .pes import PESPacket, PesParser
+from .psi import PAT, PMT, PsiParser, PsiSection
+from .splitter import TsSplitter, TsSystemClock
+
+__all__ = [
+    "TS_PACKET_LENGTH",
+    "TsPacket",
+    "TsPacketParser",
+    "PESPacket",
+    "PesParser",
+    "PsiParser",
+    "PsiSection",
+    "PAT",
+    "PMT",
+    "TsSplitter",
+    "TsSystemClock",
+]

@@ -229,7 +229,7 @@ def post_stage_inputs(name: str, frames: list, logos: list):
     h, w = frames[0][0].shape
     kw = dict(mode=cfg["mode"], post_filter=cfg.get("post_filter", ""))
     if cfg.get("qp"):
-        kw["qp_source"] = QpMapSource(synth_clip.qp_maps(
+        kw["qp_source"] = QpMapSource.from_maps(synth_clip.qp_maps(
             len(frames), QP_SEED, -(-h // 16), -(-w // 16)))
     if cfg.get("resize"):
         kw["resize"] = resize_for(h, w)

@@ -43,7 +43,7 @@ result line):
    before and read just after (two logo_eval launches per batch, nothing
    else), which must find the layout's truth exactly (scene changes at the
    cuts, two silence spans, the logo, trims [0, 450, 900, 1340], one CM
-   zone); one more run under torch.profiler (busy share); the 96x128
+   zone), run under torch.profiler (busy share); the 96x128
    layout against testdata/golden_cm.json (written by
    tests/test_torch_cm_stage.py); run_filter_stage(cm=...) in kfm_vfr over
    the 1440x1080 layout with the frame spill usable and forced off: out
@@ -60,7 +60,8 @@ result line):
    kernel, qtgmc + nr, all over 96 frames of the main clip with its logo;
    a 3840x2160 10-bit clip in mode none + nr,deband,edge, uint16 out):
    frames out, launches, seconds per pass, frames/s without the sink's
-   hashing, peak device memory; one yadif + chain run under the profiler;
+   hashing, peak device memory; one yadif + chain run over 40 frames under
+   the profiler;
    the configurations of utils/golden.py over the 96x128 clip (svp and
    svp + nr among them) against testdata/golden_post.npz (written by
    tests/test_torch_post_chain.py) and bit-equal to the CPU. Kernel A's
@@ -77,7 +78,17 @@ result line):
    two threads, frames/s); LogoAnalyzer over the 1440x1080 logo scan clip
    (over 1000 frames kept, K3 at 20 fades, A and B against the truth,
    seconds per pass); the 96x128 records of autovfr and logo generation
-   (testdata/golden_autovfr.json, golden_logo.npz).
+   (testdata/golden_autovfr.json, golden_logo.npz);
+10. "mesh": run_filter_stage over the main clip in kfm_vfr and yadif with
+   filter_devices = four logical shards of the card (parallel/mesh.py):
+   logo, decisions, plan and every frame digest equal to phase 3's
+   one-device runs, exactly one K2 launch per shard and analysis batch and
+   one K1 launch per shard, plane and output chunk, seconds per pass beside
+   the one-device run; one kfm_vfr batch on make_mesh() (every visible
+   card); sharded_pipeline_step and sharded_hbd_chain at 32x1080x1440 on
+   the four shards against one shard; the 96x128 clip on four shards in
+   kfm_vfr, yadif, yadif60, qtgmc and none + nr,deband, the card bit-equal
+   to the CPU mesh.
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -108,6 +119,20 @@ N_FILM, N_VIDEO = 240, 60
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextmanager
+def step_time(name: str):
+    """Log the seconds a step of a phase took."""
+    t0 = time.perf_counter()
+    yield
+    log(f"step {name}: {time.perf_counter() - t0:.2f} s")
+
+
+def sync(dev) -> None:
+    """Wait for the card's queue (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def nvidia_smi_line() -> str:
@@ -688,7 +713,8 @@ def main_path(dev, clip, fmt, logos) -> dict:
                     fps=len(clip) / secs, plain_fps=len(clip) / ref_secs,
                     fps_without_sink=len(clip) / (secs - sink.seconds),
                     sink_seconds=sink.seconds, pass_seconds=res.seconds,
-                    out_frames=len(sink.digests), launches=counts)
+                    out_frames=len(sink.digests), launches=counts,
+                    record=stage_record(res, sink))
         if mode == "kfm_vfr":
             modes = [int(d.mode) for d in res.graph.decisions]
             film = modes[:N_FILM // 5]
@@ -917,26 +943,34 @@ def cm_truth(cm, what: str) -> None:
         raise AssertionError(f"{what}: silence {cm.silence}")
 
 
-def profile_cm_pass(dev) -> dict:
-    """Device busy share of one CM pass over the broadcast clip."""
+def profiled_cm_pass(dev):
+    """One CM pass over the broadcast clip under torch.profiler, the counts
+    set to 0 just before and read just after: (result, seconds, launches,
+    the device busy share and the activities that take the device time).
+    One pass serves the checks and the profile: the seconds include the
+    profiler's cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, secs = run_cm(dev, "broadcast")
+        cm, secs = run_cm(dev, "broadcast")
+    counts = read_counts()
     acts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in acts) / 1e6
     if not busy_s:
         log("profile cm pass: no device time recorded (not measured)")
-        return dict(wall_seconds=secs, device_busy_share=None)
+        return cm, secs, counts, dict(wall_seconds=secs,
+                                      device_busy_share=None)
     log(f"profile cm pass: wall {secs:.3f} s, device busy {busy_s:.4f} s "
         f"({100 * busy_s / secs:.2f}%)")
     for e in sorted(acts, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile cm pass {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:90]}")
-    return dict(wall_seconds=secs, device_busy_seconds=busy_s,
-                device_busy_share=busy_s / secs)
+    return cm, secs, counts, dict(wall_seconds=secs,
+                                  device_busy_seconds=busy_s,
+                                  device_busy_share=busy_s / secs)
 
 
 def cm_golden(dev) -> None:
@@ -1016,9 +1050,8 @@ def cm_phase(dev) -> dict:
 
     open_frames = synth_clip.broadcast_clip("broadcast")[0]
     out = {"scene_metrics": check_scene_metrics(dev, open_frames)}
-    reset_counts()
-    cm, secs = run_cm(dev, "broadcast")
-    counts = read_counts()
+    t0 = time.perf_counter()
+    cm, secs, counts, out["profile"] = profiled_cm_pass(dev)
     cm_truth(cm, "cm pass 1440x1080")
     n_batches = -(-cm.num_frames // BATCH)
     if counts.get("logo_eval") != 2 * n_batches or len(counts) != 1:
@@ -1026,16 +1059,19 @@ def cm_phase(dev) -> dict:
                              f"batches x 2 logos")
     out.update(frames=cm.num_frames, seconds=secs, fps=cm.num_frames / secs,
                pass_seconds=cm.seconds, launches=counts)
-    log(f"cm pass 1440x1080: {cm.num_frames} frames in {secs:.3f} s = "
-        f"{out['fps']:.2f} frames/s (stream {cm.seconds['stream']:.3f} s, "
+    log(f"cm pass 1440x1080 (under the profiler): {cm.num_frames} frames in "
+        f"{secs:.3f} s = {out['fps']:.2f} frames/s (stream "
+        f"{cm.seconds['stream']:.3f} s, "
         f"silence {cm.seconds['silence']:.3f} s, decision "
         f"{cm.seconds['decision']:.3f} s); K3 launches {counts['logo_eval']};"
         f" scene changes {cm.scene_changes}, silence {cm.silence}, logo "
         f"{cm.best_logo}, spans {cm.logo_spans}, trims {cm.result.trims}, "
-        f"zones {[(z.start_frame, z.end_frame) for z in cm.result.cmzones]}")
-    out["profile"] = profile_cm_pass(dev)
+        f"zones {[(z.start_frame, z.end_frame) for z in cm.result.cmzones]}"
+        f" ({time.perf_counter() - t0:.2f} s with the profile)")
+    t0 = time.perf_counter()
     cm_golden(dev)
     out["stage"] = cm_filter_stage(dev, cm)
+    log(f"cm phase: golden and filter stage {time.perf_counter() - t0:.2f} s")
     out["result"] = cm  # the autovfr stage of phase 9 erases its logo
     return out
 
@@ -1180,7 +1216,7 @@ def post_configs(clip, logos, dev):
     from amatsukaze_tpu_torch.utils import golden, synth_clip
 
     part = clip[:POST_FRAMES]
-    qp = QpMapSource(synth_clip.qp_maps(POST_FRAMES, golden.QP_SEED))
+    qp = QpMapSource.from_maps(synth_clip.qp_maps(POST_FRAMES, golden.QP_SEED))
     uhd = make_uhd_clip_10bit(UHD_FRAMES, UHD_H, UHD_W, 5, dev)
     return [
         ("yadif+deblock,nr,deband,edge+resize", part, logos,
@@ -1244,18 +1280,25 @@ def run_post_configs(dev, clip, logos) -> dict:
     return out
 
 
+PROFILE_POST_FRAMES = 40  # the head ramp and one batch
+
+
 def profile_post(dev, clip, logos) -> dict:
-    """Device busy share of one yadif + chain + resize run."""
+    """Device busy share of one yadif + chain + resize run over the first
+    PROFILE_POST_FRAMES frames of the main clip (processing the profile
+    costs about ten times the run: deband launches thousands of kernels a
+    batch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from amatsukaze_tpu_torch.ts.qp_extract import QpMapSource
     from amatsukaze_tpu_torch.utils import golden, synth_clip
 
-    qp = QpMapSource(synth_clip.qp_maps(POST_FRAMES, golden.QP_SEED))
+    qp = QpMapSource.from_maps(synth_clip.qp_maps(PROFILE_POST_FRAMES,
+                                                  golden.QP_SEED))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = run_stage(clip[:POST_FRAMES],
+        _, _, secs = run_stage(clip[:PROFILE_POST_FRAMES],
                                synth_clip.video_format(H, W), logos, "yadif",
                                dev, post_filter="deblock,nr,deband,edge",
                                qp_source=qp, resize=(1280, 720))
@@ -1312,11 +1355,17 @@ def post_phase(dev, clip, logos) -> dict:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: deblock and resize need float32 "
                              "products")
-    check_threefry(dev)
-    out = {"ops": check_post_ops(dev, clip)}
-    out["configs"] = run_post_configs(dev, clip, logos)
-    out["profile"] = profile_post(dev, clip, logos)
-    post_golden(dev)
+    out = {}
+    with step_time("threefry"):
+        check_threefry(dev)
+    with step_time("post ops"):
+        out["ops"] = check_post_ops(dev, clip)
+    with step_time("post configs"):
+        out["configs"] = run_post_configs(dev, clip, logos)
+    with step_time("post profile"):
+        out["profile"] = profile_post(dev, clip, logos)
+    with step_time("post golden"):
+        post_golden(dev)
     return out
 
 
@@ -1648,11 +1697,221 @@ def modes_golden(dev) -> None:
 
 
 def modes_phase(dev, clip, fmt, logos, cm) -> dict:
-    check_logo_eval_generation(dev)
-    out = {"svp": svp_path(dev, clip, fmt, logos),
-           "autovfr": autovfr_path(dev, cm),
-           "logo": logo_generation(dev)}
-    modes_golden(dev)
+    with step_time("logo_eval at generation's shapes"):
+        check_logo_eval_generation(dev)
+    out = {}
+    with step_time("svp"):
+        out["svp"] = svp_path(dev, clip, fmt, logos)
+    with step_time("autovfr"):
+        out["autovfr"] = autovfr_path(dev, cm)
+    with step_time("logo generation"):
+        out["logo"] = logo_generation(dev)
+    with step_time("modes golden"):
+        modes_golden(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the mesh (FilterGraph.set_mesh, parallel/)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # logical shards on the one card
+
+
+def mesh_stage(dev, clip, fmt, logos, main, mesh) -> dict:
+    """run_filter_stage over the main clip in kfm_vfr and yadif with
+    filter_devices=mesh (four logical shards on the card), the counts set to
+    0 just before each and read just after: logo, decisions, VFR plan and
+    every output frame's digest equal to the mode's single-device run of
+    the main path; exactly one K2 launch per shard and analysis batch, one
+    K1 launch per shard, plane and output chunk, the logo pass's K3
+    launches as there."""
+    from amatsukaze_tpu_torch.pipeline.filter_stage import HEAD_RAMP
+    from amatsukaze_tpu_torch.utils import golden
+
+    n = mesh.size
+    out = {}
+    for mode in ("kfm_vfr", "yadif"):
+        reset_counts()
+        res, sink, secs = run_stage(clip, fmt, logos, mode, dev,
+                                    filter_devices=mesh)
+        counts = read_counts()
+        single = main[mode]
+        golden.assert_matches(stage_record(res, sink), single["record"],
+                              f"mesh {mode} vs one device")
+        if mode == "kfm_vfr":
+            want = {"costs": n * -(-len(clip) // BATCH)}
+        else:
+            chunks = 1 + -(-(len(clip) - HEAD_RAMP) // BATCH)
+            want = {"yadif": n * 3 * chunks}
+        want["logo_eval"] = single["launches"]["logo_eval"]
+        if counts != want or res.shards != n:
+            raise AssertionError(f"mesh {mode}: launches {counts}, want "
+                                 f"{want}; {res.shards} shards")
+        out[mode] = dict(seconds=secs, single_seconds=single["seconds"],
+                         pass_seconds=res.seconds,
+                         single_pass_seconds=single["pass_seconds"],
+                         sink_seconds=sink.seconds, launches=counts)
+        log(f"mesh {mode}: {len(clip)} frames {fmt.width}x{fmt.height} on "
+            f"{n} logical shards of one card in {secs:.3f} s (one device: "
+            f"{single['seconds']:.3f} s; passes {res.seconds}, one device "
+            f"{single['pass_seconds']}); logo, decisions, plan and "
+            f"{len(sink.digests)} frame digests equal to the one-device run;"
+            f" launches {counts}")
+    return out
+
+
+def mesh_visible(dev, clip) -> dict:
+    """make_mesh() over every visible device: one kfm_vfr batch (analysis
+    and synthesis of the main clip's first 64 luma frames) equal to the
+    same on one device, one K2 launch per device and batch."""
+    from amatsukaze_tpu_torch.models.filter_graph import FilterGraph
+    from amatsukaze_tpu_torch.parallel.mesh import make_mesh
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    mesh = make_mesh()
+    luma = [f[0] for f in clip[:2 * BATCH]]
+    runs = []
+    for m in (None, mesh):
+        fg = FilterGraph(AMTContext(level="warn"), mode="kfm_vfr",
+                         batch=2 * BATCH, device=dev)
+        if m is not None:
+            fg.set_mesh(m)
+        reset_counts()
+        fg.analyze(iter(luma), len(luma))
+        out = fg.run_kfm_batch(np.stack(luma), None, 0, final=True)
+        runs.append((fg, out.materialize(), read_counts()))
+    (one, a, _), (fg, b, counts) = runs
+    if (not np.array_equal(a, b) or one.vfr_plan.source_frames
+            != fg.vfr_plan.source_frames
+            or counts != {"costs": mesh.size, "logo_eval": 0}):
+        raise AssertionError(f"make_mesh(): {mesh} differs from one device "
+                             f"(launches {counts})")
+    log(f"mesh make_mesh(): {mesh} (torch.cuda.device_count() "
+        f"{torch.cuda.device_count()}): one kfm_vfr batch of {len(luma)} "
+        f"frames, {len(b)} frames out equal to one device; launches {counts}")
+    return {"devices": [str(d) for d in mesh.devices], "launches": counts}
+
+
+def mesh_steps(dev, clip, mesh) -> dict:
+    """sharded_pipeline_step and sharded_hbd_chain over one batch of 32
+    frames of 1080x1440 on the logical shards against the same steps on one
+    shard (the single-device composition): filtered frames, presence and
+    the 10-bit chain equal, the costs (float32 sums, in another order on
+    another batch size) within rtol 1e-5, K3's scores within 2.4e-7 (its
+    stated tolerance); one K3 launch per shard. The frames are the main
+    clip's 16-47 with the top left 96x256 window (where the step reads the
+    logo) made a flat, slightly noisy background of a random level, the
+    logo composited on every other frame: the presence is then neither 0
+    nor 1. Then the backend's deinterlace on the same frames: K1's uint8
+    (rounded=True, one launch per shard and parity) equal to the rounded
+    float yadif, in yadif and yadif60."""
+    from amatsukaze_tpu_torch.ops.logo import LogoEvalParams
+    from amatsukaze_tpu_torch.ops.logo_ref import LogoEvalRef
+    from amatsukaze_tpu_torch.parallel import mesh as pmesh
+    from amatsukaze_tpu_torch.parallel.sharded_filter import (
+        ShardedFilterBackend)
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    one = pmesh.make_mesh([dev])
+    lg = synth_clip.make_logos(H, W, LOGO_H, LOGO_W, LOGO_X, LOGO_Y)[0]
+    params = LogoEvalParams.from_ref(LogoEvalRef(lg.a_y, lg.b_y), dev)
+    frames = np.stack([f[0] for f in clip[16:16 + BATCH]])
+    rng = np.random.default_rng(7)
+    for k in range(BATCH):
+        bg = rng.integers(16, 235) + rng.normal(0, 2, (LOGO_H, LOGO_W))
+        if k % 2 == 0:  # the inverse of the logo's erase
+            bg = (bg - lg.b_y * 255.0) / lg.a_y
+        frames[k, :LOGO_H, :LOGO_W] = np.clip(np.round(bg), 0, 255)
+    fades = rng.uniform(0, 1, BATCH).astype(np.float32)
+    frames_f = frames.astype(np.float32)
+    res = {}
+    for m in (mesh, one):
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        step = pmesh.sharded_pipeline_step(m, params)(frames_f, fades)
+        hbd = pmesh.sharded_hbd_chain(m)(frames, 7)
+        sync(dev)
+        res[m.size] = (step, hbd, time.perf_counter() - t0, read_counts())
+    (sf, ss, sc, sp), sh, secs, counts = res[mesh.size]
+    (of, os_, oc, op), oh, one_secs, _ = res[1]
+    err = (ss - os_).abs().max().item()
+    cost_ok = torch.allclose(sc, oc, rtol=1e-5, atol=1e-4)
+    if not (torch.equal(sf, of) and torch.equal(sp, op) and torch.equal(
+            sh, oh) and cost_ok and err <= 2.4e-7 and 0 < sp.item() < 1
+            and counts == {"logo_eval": mesh.size}):
+        raise AssertionError(
+            f"mesh steps differ from one shard: filtered "
+            f"{torch.equal(sf, of)}, presence {sp.item()} vs {op.item()}, "
+            f"hbd {torch.equal(sh, oh)}, costs {cost_ok}, scores {err}; "
+            f"launches {counts}")
+    log(f"mesh steps: sharded_pipeline_step and sharded_hbd_chain over "
+        f"{BATCH}x{H}x{W} on {mesh.size} shards in {secs:.3f} s (one shard "
+        f"{one_secs:.3f} s): filtered, presence {sp.item():.4f} and the "
+        f"10-bit chain equal, costs within rtol 1e-5 (max rel "
+        f"{((sc - oc).abs() / oc.abs().clamp_min(1e-6)).max().item():.3g}),"
+        f" scores within {err:.3g}; launches {counts}")
+    backend = ShardedFilterBackend(mesh)
+    for mode in ("yadif", "yadif60"):
+        k1 = backend.deint(mode, frames, None, None, rounded=True)
+        plain = backend.deint(mode, frames, None, None)
+        if k1.dtype != torch.uint8 or not torch.equal(
+                k1, torch.floor(plain + 0.5).clamp(0, 255).to(torch.uint8)):
+            raise AssertionError(f"mesh deint {mode}: K1's uint8 differs "
+                                 f"from the rounded float yadif")
+    log(f"mesh deint: K1's uint8 on {mesh.size} shards equal to the rounded "
+        f"float yadif in yadif and yadif60 ({BATCH}x{H}x{W})")
+    return {"seconds": secs, "one_shard_seconds": one_secs,
+            "score_err": err, "presence": sp.item(), "launches": counts}
+
+
+MESH_RECORDS = {  # name: (mode, post chain)
+    "kfm_vfr": ("kfm_vfr", ""), "yadif": ("yadif", ""),
+    "yadif60": ("yadif60", ""), "qtgmc": ("qtgmc", ""),
+    "none_nr_deband": ("none", "nr,deband"),
+}
+
+
+def mesh_records(dev, n) -> dict:
+    """The recorded 96x128 clip on n logical shards, on the card and on the
+    CPU, in the graphs of MESH_RECORDS: frames bit-equal (the CPU mesh is
+    the JAX package's mesh at the same n, tests/test_torch_mesh.py)."""
+    from amatsukaze_tpu_torch.parallel.mesh import make_mesh
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    frames, fmt, logos, batch = synth_clip.golden_clip("small")
+    counts = {}
+    for name, (mode, post) in MESH_RECORDS.items():
+        outs = []
+        for where in (dev, torch.device("cpu")):
+            reset_counts()
+            _, sink, _ = run_stage(frames, fmt, logos, mode, where, batch,
+                                   keep=True, post_filter=post,
+                                   filter_devices=make_mesh([where] * n))
+            outs.append(sink.frames)
+            if where == dev:
+                counts[name] = read_counts()
+        if len(outs[0]) != len(outs[1]) or any(
+                not np.array_equal(a, b) for fa, fb in zip(*outs)
+                for a, b in zip(fa, fb)):
+            raise AssertionError(f"mesh record {name}: card differs from "
+                                 f"the CPU mesh")
+    log(f"mesh records: 96x128 clip on {n} logical shards, "
+        f"{list(MESH_RECORDS)}: card bit-equal to the CPU mesh; launches "
+        f"{counts}")
+    return counts
+
+
+def mesh_phase(dev, clip, fmt, logos, main, card: str) -> dict:
+    from amatsukaze_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    log(f"mesh: {MESH_SHARDS} logical shards on one card ({card})")
+    out = {"stage": mesh_stage(dev, clip, fmt, logos, main, mesh),
+           "visible": mesh_visible(dev, clip),
+           "steps": mesh_steps(dev, clip, mesh),
+           "records": mesh_records(dev, MESH_SHARDS)}
     return out
 
 
@@ -1689,7 +1948,8 @@ def main() -> int:
     log(f"phase main path: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    profile_stage(dev, clip, fmt, logos)
+    with step_time("profile kfm_vfr"):
+        profile_stage(dev, clip, fmt, logos)
     profile_scan_pass(dev, clip, fmt, logos)
     log(f"phase profile: {time.perf_counter() - t0:.2f} s")
 
@@ -1714,14 +1974,22 @@ def main() -> int:
     log(f"phase svp, autovfr, logo generation: "
         f"{time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, clip, fmt, logos, main, smi)
+    log(f"phase mesh: {time.perf_counter() - t0:.2f} s")
+
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
         ("yadif_fieldmatch[yadif]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:335",
-         main["yadif"]["launches"].get("yadif", 0), checks["yadif_y"]),
+         main["yadif"]["launches"].get("yadif", 0)
+         + mesh["stage"]["yadif"]["launches"]["yadif"]
+         + sum(c.get("yadif", 0) for c in mesh["records"].values()),
+         checks["yadif_y"]),
         ("yadif_fieldmatch[yadif_bottom]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:335",
-         post["configs"]["yadif60"]["launches"].get("yadif_bottom", 0),
+         post["configs"]["yadif60"]["launches"].get("yadif_bottom", 0)
+         + mesh["records"]["yadif60"].get("yadif_bottom", 0),
          checks["yadif_bottom_y"]),
         ("yadif_fieldmatch[costs]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:716",
@@ -1729,13 +1997,19 @@ def main() -> int:
          + cm["stage"]["launches"]["costs"]
          + modes["svp"]["launches"]["costs"]
          + sum(modes["autovfr"][f"parallel_{p}"]["launches"]["costs"]
-               for p in (1, 2)), checks["costs_y"]),
+               for p in (1, 2))
+         + mesh["stage"]["kfm_vfr"]["launches"]["costs"]
+         + mesh["visible"]["launches"]["costs"]
+         + mesh["records"]["kfm_vfr"].get("costs", 0), checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
          + main["yadif"]["launches"]["logo_eval"]
          + cm["launches"]["logo_eval"]
          + modes["svp"]["launches"]["logo_eval"]
-         + modes["logo"]["launches"]["logo_eval"],
+         + modes["logo"]["launches"]["logo_eval"]
+         + sum(mesh["stage"][m]["launches"]["logo_eval"]
+               for m in ("kfm_vfr", "yadif"))
+         + mesh["steps"]["launches"]["logo_eval"],
          checks["logo_eval_u8_f11"]),
     ]
     kernels = []

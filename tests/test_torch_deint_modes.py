@@ -168,7 +168,7 @@ def _graphs(mode, post, qp_maps, resize=None):
     fg = FilterGraph(AMTContext(), mode=mode, batch=6, device="cpu",
                      post_chain=build_post_chain(post),
                      qp_source=None if qp_maps is None
-                     else QpMapSource(qp_maps))
+                     else QpMapSource.from_maps(qp_maps))
     jfg = jfg_mod.FilterGraph(JContext(level="error"), mode=mode, batch=6,
                               post_chain=jfg_mod.build_post_chain(post))
     jfg._host_backend = False

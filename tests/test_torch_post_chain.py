@@ -309,7 +309,7 @@ def test_qp_source_clamps_and_replaces_wrong_shapes():
     maps = synth_clip.qp_maps(6, 1, 4, 6)
     maps[3] = np.full((2, 3), 12, np.uint8)  # a field-sized map
     maps[4] = np.zeros((4, 7), np.uint8)  # median 0 -> 8
-    t, j = QpMapSource(maps), _jax_qp_source(maps)
+    t, j = QpMapSource.from_maps(maps), _jax_qp_source(maps)
     assert len(t) == len(j) == 6
     for idx in ([0, 1, 2], [-3, 0, 9], [2, 3, 4, 5], [3, 4], [], [5, 5, 7]):
         a, b = t.maps_for(idx), j.maps_for(idx)
@@ -321,8 +321,8 @@ def test_qp_source_clamps_and_replaces_wrong_shapes():
     sel_t, sel_j = t.select([5, 0, 2, 11]), j.select([5, 0, 2, 11])
     assert len(sel_t) == len(sel_j) == 4
     np.testing.assert_array_equal(sel_t.maps(0, 4), sel_j.maps(0, 4))
-    assert QpMapSource().maps_for([0]) is None
-    assert len(QpMapSource().select([0, 1])) == 0
+    assert QpMapSource.from_maps([]).maps_for([0]) is None
+    assert len(QpMapSource.from_maps([]).select([0, 1])) == 0
 
 
 @pytest.mark.parametrize("n_in,n_out", [(96, 64), (128, 112), (64, 96),
@@ -420,7 +420,7 @@ def jax_post_stage(frames, logos, mode, batch, monkeypatch, post_filter="",
     if resize is not None:
         fg.resize = tuple(resize)
     if qp_source is not None:
-        fg.qp_source = _jax_qp_source(qp_source.results)
+        fg.qp_source = _jax_qp_source([r.qp for r in qp_source.results])
     if mode == "yadif":
         _yadif_as_on_tpu(fg)
     depth = 10 if frames[0][0].dtype == np.uint16 else 8
