@@ -143,6 +143,25 @@ def detect_silence(pcm_s16, fps: float, device) -> list[tuple[int, int]]:
     return [(int(s * to_frames), int(e * to_frames)) for s, e in spans]
 
 
+def filter_source_pcm(reform, video_index: int, wave_path: str):
+    """The wave file's PCM of one video file's filter-source audio frames
+    (StreamReformInfo.get_filter_source_audio_frames), as interleaved
+    int16, or None without audio (transcode.py:691-709)."""
+    wave_frames = reform.get_filter_source_audio_frames(video_index)
+    if not wave_frames or not os.path.exists(wave_path):
+        return None
+    chunks = []
+    with open(wave_path, "rb") as f:
+        for wf in wave_frames:
+            if wf.wave_offset < 0 or wf.wave_length <= 0:
+                continue
+            f.seek(wf.wave_offset)
+            chunks.append(f.read(wf.wave_length))
+    if not chunks:
+        return None
+    return np.frombuffer(b"".join(chunks), np.int16)
+
+
 def jls_elements(result: CMAnalyzeResult, num_frames: int,
                  fps: float) -> list[JlsElement]:
     """The spans between trims and divs, in whole seconds

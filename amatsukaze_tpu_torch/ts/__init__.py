@@ -1,6 +1,6 @@
 """Transport-stream layer: packets, PES, PSI, the splitter and its ES
-parsers, and the QP maps that feed the deblock post filter (copies of
-amatsukaze_tpu/ts; ts/info.py waits for the captions layer)."""
+parsers, the stream report (info.py) and the QP maps that feed the
+deblock post filter (copies of amatsukaze_tpu/ts)."""
 
 from .packet import TS_PACKET_LENGTH, TsPacket, TsPacketParser
 from .pes import PESPacket, PesParser

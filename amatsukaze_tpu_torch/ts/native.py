@@ -12,6 +12,7 @@ The port's copy of amatsukaze_tpu/ts/native.py.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -36,14 +37,41 @@ _lib = None
 _load_attempted = False
 
 
-def _build() -> str | None:
-    makefile = os.path.join(_NATIVE_DIR, "Makefile")
-    if not os.path.exists(makefile):
-        return None
+# Every loader of the port builds native/ through build_native(), which
+# holds this lock while `make` runs: processes that load the libraries at
+# the same time (test workers, chip_smoke.py's build thread) then
+# wait for one build instead of racing on the same object files.
+_BUILD_LOCK = os.path.join(os.path.dirname(__file__), "..", "ops", "build",
+                           "native.lock")
+
+
+def build_native(target: str, timeout: float) -> bool:
+    """Run `make -C native -s <target>` under an exclusive lock on a file
+    in the package's git-ignored build directory; True when make
+    succeeded. The target is named, not `all`: the Makefile's probe for
+    the FFmpeg headers passes without them under GNU make 4.3 and later
+    (its escaped `#` reaches the shell), and `all` then fails on the bridge
+    before the engines' library is linked."""
+    if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
+        return False
+    jobs = str(min(8, os.cpu_count() or 1))
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "-s"], check=True,
-                       capture_output=True, timeout=180)
+        os.makedirs(os.path.dirname(_BUILD_LOCK), exist_ok=True)
+        with open(_BUILD_LOCK, "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                subprocess.run(["make", "-C", _NATIVE_DIR, "-s", "-j", jobs,
+                                target], check=True, capture_output=True,
+                               timeout=timeout)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
     except (OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
+def _build() -> str | None:
+    if not build_native(_LIB_NAME, 180):
         return None
     path = os.path.join(_NATIVE_DIR, _LIB_NAME)
     return path if os.path.exists(path) else None

@@ -14,8 +14,7 @@ Here the tables come straight from the ES macroblock layer:
 QP maps feed ops.denoise.deblock_qp ([B, H/16, W/16] quantiser scales).
 
 The port's copy of amatsukaze_tpu/ts/qp_extract.py, with
-`QpMapSource.from_maps` for maps the caller already has. The decoder
-bridge (`qp_map_source_from_avdec`) waits for the port of video/avdec.py.
+`QpMapSource.from_maps` for maps the caller already has.
 """
 
 from __future__ import annotations
@@ -493,3 +492,41 @@ class QpMapSource:
                    np.full(shape, int(np.median(q)) or 8, np.uint8)
                    for q in sel]
         return np.stack(sel).astype(np.float32)
+
+
+def qp_map_source_from_avdec(path: str) -> "QpMapSource | None":
+    """QP maps via FFmpeg's per-block video-enc-params export (the
+    modern form of the patched av_frame_get_qp_table the reference
+    uses, AMTSource.hpp:371-404). Covers codecs the ES-layer extractor
+    does not (H.264); returns None when the bridge or the codec's
+    export is unavailable. QP values are passed through in the codec's
+    own scale, exactly like the reference's frame props."""
+    try:
+        from ..video.avdec import avdec_available, decode_with_qp
+    except Exception:  # noqa: BLE001
+        return None
+    if not avdec_available():
+        return None
+    results = []
+    try:
+        for i, (y, u, v, qp) in enumerate(decode_with_qp(path)):
+            h, w = y.shape
+            mbw, mbh = (w + 15) // 16, (h + 15) // 16
+            grid = np.full((mbh, mbw), 26, np.uint8)
+            ok = 0
+            if len(qp):
+                xs = np.clip(qp[:, 0] // 16, 0, mbw - 1)
+                ys = np.clip(qp[:, 1] // 16, 0, mbh - 1)
+                grid[ys, xs] = np.clip(qp[:, 2], 1, 255).astype(np.uint8)
+                ok = 1
+            results.append(QpResult(grid, None, 0, 3, i, ok, 1 - ok))
+    except RuntimeError:
+        return None
+    if not results or not any(r.slices_ok for r in results):
+        return None
+    out = QpMapSource.__new__(QpMapSource)
+    out.results = results
+    out.full_parse = True
+    out.slices_ok = sum(r.slices_ok for r in results)
+    out.slices_fallback = sum(r.slices_fallback for r in results)
+    return out

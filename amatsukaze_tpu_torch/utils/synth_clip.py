@@ -196,12 +196,15 @@ def _texture(h: int, w: int, base, amp, period, row_period) -> np.ndarray:
     return np.rint(t).astype(np.int16)
 
 
-def make_broadcast_clip(h, w, lh, lw, lx, ly, seed):
+def make_broadcast_clip(h, w, lh, lw, lx, ly, seed,
+                        scenes=BROADCAST_SCENES,
+                        num_frames=BROADCAST_FRAMES):
     """Yield (Y, U, V) uint8 planes of the seeded broadcast layout, one
     frame at a time (a 1440x1080 clip never sits whole in host RAM), at
     30000/1001 fps: program [0, 450) with the logo painted (a cut at 210),
     CM [450, 900) without it, program [900, 1340) with it (BROADCAST_SCENES).
-    Every call yields the same bytes."""
+    Every call yields the same bytes. Other `scenes` (entries as in
+    BROADCAST_SCENES) and `num_frames` lay out a clip of other cuts."""
     rng = np.random.default_rng((seed, 0))
     subs = (1, 2, 2)
     alphas = [logo_alpha(lh // s, lw // s).astype(np.float64) for s in subs]
@@ -210,8 +213,8 @@ def make_broadcast_clip(h, w, lh, lw, lx, ly, seed):
     # take most of the generator's time)
     pools = [rng.integers(-1, 2, (h // s + NOISE_SLACK, w // s + NOISE_SLACK),
                           dtype=np.int16) for s in subs]
-    bounds = [s[0] for s in BROADCAST_SCENES] + [BROADCAST_FRAMES]
-    for (first, film, logo, params), end in zip(BROADCAST_SCENES, bounds[1:]):
+    bounds = [s[0] for s in scenes] + [num_frames]
+    for (first, film, logo, params), end in zip(scenes, bounds[1:]):
         fields = _scene_fields(first, end, film)
         reach = fields[-1][1] + 1
         textures = [_texture(h // s, w // s + reach // s + 1, *p)

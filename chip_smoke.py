@@ -88,7 +88,22 @@ result line):
    card); sharded_pipeline_step and sharded_hbd_chain at 32x1080x1440 on
    the four shards against one shard; the 96x128 clip on four shards in
    kfm_vfr, yadif, yadif60, qtgmc and none + nr,deband, the card bit-equal
-   to the CPU mesh.
+   to the CPU mesh;
+11. "ts front end": utils/synth_ts.py writes a 96-frame 1440x1080i MPEG-2
+   TS (intra pictures of a short broadcast layout with the logo, ADTS
+   AAC-LC stereo silent around its two cuts); pipeline.splitter.AMTSplitter
+   splits it on the native TS engine into the intermediate PS, the wave
+   file and the stream reform (frames, PTS order and filter-source frames
+   as written); decode_mpeg2_ps_file decodes the PS on the native MPEG-2
+   engine (the pure-Python decoder raises if anything reaches it), every
+   frame's digest the writer's reconstruction's; the native AAC decoder's
+   PCM equals the oracle's on 24 frames, the wave file's PCM the decode of
+   the stream; run_cm_analysis fed by the decoder and that PCM, and
+   run_filter_stage(cm=...) in kfm_vfr and in yadif + deblock with
+   QpMapSource.from_file(<the PS>), the counts set to 0 just before each
+   and read just after, equal the same passes fed the reconstruction (and
+   the writer's quantiser scales) from host RAM. native/ builds on a
+   thread from the start (it needs g++).
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -1915,6 +1930,289 @@ def mesh_phase(dev, clip, fmt, logos, main, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the TS front end (stream reform, intermediate PS, AAC, MPEG-2
+# decode) feeding the CM pass and the filter stage
+# ---------------------------------------------------------------------------
+
+def start_native_build():
+    """Build and load native/libamatsukaze_native.so on a thread while the
+    kernels build and the earlier phases run; ts_phase joins it."""
+    import threading
+
+    from amatsukaze_tpu_torch.ts import native
+
+    box = {}
+
+    def build():
+        t0 = time.perf_counter()
+        box["lib"] = native.load_native()
+        box["seconds"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build, daemon=True)
+    th.start()
+    return th, box
+
+
+class _NoOracle:
+    """Stands in for the pure-Python MPEG-2 decoder while the phase decodes:
+    the native engine must do it, with no hidden fallback."""
+
+    def __init__(self, *a, **kw):
+        raise AssertionError("decode fell back to the pure-Python MPEG-2 "
+                             "decoder: the native engine did not run")
+
+
+@contextmanager
+def native_mpeg2_only():
+    import amatsukaze_tpu_torch.video as video
+
+    with mock.patch.object(video, "Mpeg2RefDecoder", _NoOracle):
+        yield
+
+
+def ts_write(work: str, name: str) -> dict:
+    from amatsukaze_tpu_torch.utils import synth_ts
+
+    path = f"{work}/src.ts"
+    ts, fmt, logos = synth_ts.ts_clip(name, path)
+    log(f"ts writer: {ts.num_frames} frames {fmt.width}x{fmt.height}i MPEG-2"
+        f" intra + {len(ts.audio_frames)} ADTS AAC-LC stereo frames, "
+        f"{ts.size / 1e6:.2f} MB in {ts.seconds:.2f} s")
+    return dict(ts=ts, fmt=fmt, logos=logos, seconds=ts.seconds,
+                mb=ts.size / 1e6)
+
+
+def ts_split(work: str, ts) -> dict:
+    """AMTSplitter.split() with the port's Settings: the intermediate PS, the
+    wave file and the StreamReformInfo; the frames, their PTS order and the
+    filter-source frames are the writer's."""
+    from amatsukaze_tpu_torch.audio.aac_native import NativeAacDecoder
+    from amatsukaze_tpu_torch.audio.aac_native import make_decoder
+    from amatsukaze_tpu_torch.pipeline.settings import Config, Settings
+    from amatsukaze_tpu_torch.pipeline.splitter import AMTSplitter
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    if not isinstance(make_decoder(), NativeAacDecoder):
+        raise AssertionError("the native AAC decoder did not build")
+    conf = Config()
+    conf.src_file_path = ts.path
+    conf.work_dir = work
+    conf.out_video_path = f"{work}/out"
+    ctx = AMTContext(level="warn")
+    st = Settings(ctx, conf)
+    t0 = time.perf_counter()
+    sp = AMTSplitter(ctx, st, audio_decoder_factory=make_decoder)
+    reform = sp.split()
+    reform.prepare(conf.split_sub, False)
+    secs = time.perf_counter() - t0
+    src = reform.get_filter_source_frames(0)
+    if (sp.video_file_count != 1 or len(src) != ts.num_frames
+            or [f.frame_pts for f in src] != ts.pts
+            or [f.frame_index for f in src] != list(range(ts.num_frames))):
+        raise AssertionError(
+            f"split: {sp.video_file_count} files, {len(src)} frames against "
+            f"the writer's {ts.num_frames}, or their PTS differ")
+    if sp._engine is None:
+        raise AssertionError("split: the native TS engine did not run")
+    log(f"ts split: {ts.size / 1e6:.2f} MB in {secs:.3f} s = "
+        f"{ts.size / 1e6 / secs:.1f} MB/s (native TS engine); "
+        f"{len(src)} frames in PTS order as written, intermediate PS "
+        f"{sp.total_int_video_size / 1e6:.2f} MB, "
+        f"{len(reform.get_filter_source_audio_frames(0))} audio frames")
+    return dict(st=st, reform=reform, seconds=secs,
+                mb_per_s=ts.size / 1e6 / secs,
+                ps=st.int_video_file_path(0))
+
+
+def ts_decode(ps: str, ts) -> dict:
+    """decode_mpeg2_ps_file over the intermediate PS on the native engine:
+    every frame's digest equals the writer's reconstruction's."""
+    from amatsukaze_tpu_torch.pipeline.decoders import decode_mpeg2_ps_file
+    from amatsukaze_tpu_torch.utils.golden import frame_digest
+    from amatsukaze_tpu_torch.video.native import NativeMpeg2Decoder
+
+    NativeMpeg2Decoder()  # raises where the engine did not build
+    t0 = time.perf_counter()
+    with native_mpeg2_only():
+        frames = list(decode_mpeg2_ps_file(ps))
+    secs = time.perf_counter() - t0
+    got = [frame_digest(f) for f in frames]
+    want = [frame_digest(f) for f in ts.recon]
+    bad = [k for k, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"decode: {len(got)} frames against "
+                             f"{len(want)}, differing {bad[:5]}")
+    log(f"ts decode: {len(frames)} frames in {secs:.3f} s = "
+        f"{len(frames) / secs:.1f} frames/s on the native MPEG-2 engine; "
+        f"every frame digest equals the writer's reconstruction")
+    return dict(seconds=secs, fps=len(frames) / secs)
+
+
+def ts_audio(split: dict, ts) -> dict:
+    """The native AAC decoder's PCM equals the pure-Python oracle's on the
+    first frames; the wave file's PCM through
+    get_filter_source_audio_frames is the native decode of every frame."""
+    from amatsukaze_tpu_torch.audio.aac import AacLcDecoder
+    from amatsukaze_tpu_torch.audio.aac_native import make_decoder
+    from amatsukaze_tpu_torch.pipeline.cm_stage import filter_source_pcm
+
+    n_check = 24
+    nat, ref = make_decoder(), AacLcDecoder()
+    t0 = time.perf_counter()
+    pcm_nat = b"".join(nat.decode(f).pcm for f in ts.audio_frames[:n_check])
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcm_ref = b"".join(ref.decode(f).pcm for f in ts.audio_frames[:n_check])
+    t_ref = time.perf_counter() - t0
+    a = np.frombuffer(pcm_nat, np.int16).astype(np.int32)
+    b = np.frombuffer(pcm_ref, np.int16).astype(np.int32)
+    if a.shape != b.shape or not np.array_equal(a, b):
+        raise AssertionError(f"audio: native PCM differs from the oracle's "
+                             f"(max {np.abs(a - b).max() if a.shape == b.shape else 'shape'})")
+    pcm = filter_source_pcm(split["reform"], 0, split["st"].wave_file_path())
+    dec = make_decoder()
+    whole = b"".join(dec.decode(f).pcm for f in ts.audio_frames)
+    if pcm is None or pcm.tobytes() != whole:
+        raise AssertionError("audio: the wave file's PCM is not the decode "
+                             "of the writer's frames")
+    log(f"ts audio: native PCM == oracle PCM on the first {n_check} frames "
+        f"(native {t_nat * 1e3:.1f} ms, oracle {t_ref * 1e3:.1f} ms); wave "
+        f"file PCM through get_filter_source_audio_frames: "
+        f"{pcm.size // 2} stereo samples, the native decode of the stream")
+    return dict(pcm=pcm, oracle_frames=n_check)
+
+
+def ts_cm(dev, ps: str, ts, fmt, logos, pcm) -> dict:
+    """run_cm_analysis on the card fed by the native decoder and the wave
+    file's PCM, the counts set to 0 just before and read just after; the
+    same pass fed the writer's reconstruction from host RAM gives the same
+    logo, fade curve, trims, divs, scene changes and silence."""
+    from amatsukaze_tpu_torch.pipeline.cm_stage import run_cm_analysis
+    from amatsukaze_tpu_torch.pipeline.decoders import decode_mpeg2_ps_file
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    n = ts.num_frames
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    with native_mpeg2_only():
+        cm = run_cm_analysis(AMTContext(level="warn"),
+                             lambda: decode_mpeg2_ps_file(ps), n, fmt, logos,
+                             pcm_s16=pcm, batch=BATCH, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    ref = run_cm_analysis(AMTContext(level="warn"), lambda: iter(ts.recon), n,
+                          fmt, logos, pcm_s16=pcm, batch=BATCH, device=dev)
+
+    def key(c):
+        r = c.result
+        return dict(best=c.best_logo, trims=r.trims, divs=r.divs,
+                    zones=[(z.start_frame, z.end_frame) for z in r.cmzones],
+                    scene_changes=c.scene_changes, silence=c.silence,
+                    spans=c.logo_spans, frames=c.num_frames)
+
+    if key(cm) != key(ref) or not np.array_equal(cm.fade, ref.fade):
+        raise AssertionError(f"ts cm pass: {key(cm)} against the host-RAM "
+                             f"pass {key(ref)}, or the fade curves differ")
+    n_batches = -(-n // BATCH)
+    if (cm.best_logo != 0 or not cm.silence or not cm.scene_changes
+            or counts.get("logo_eval") != len(logos) * n_batches
+            or len(counts) != 1):
+        raise AssertionError(f"ts cm pass: logo {cm.best_logo}, silence "
+                             f"{cm.silence}, scene changes "
+                             f"{cm.scene_changes}, launches {counts}")
+    log(f"ts cm pass: {n} frames decoded and analysed in {secs:.3f} s = "
+        f"{n / secs:.2f} frames/s; K3 launches {counts['logo_eval']}; "
+        f"{key(cm)}; equal to the pass fed the reconstruction from host RAM")
+    return dict(result=cm, host_result=ref, seconds=secs, fps=n / secs,
+                launches=counts)
+
+
+def ts_stage(dev, ps: str, ts, fmt, logos, cm, ref_cm) -> dict:
+    """run_filter_stage(cm=...) in kfm_vfr, and in yadif + deblock with the
+    QP maps read from the intermediate PS, fed by the native decoder: frame
+    digests, decisions and plan equal to the same stage fed the writer's
+    reconstruction (and, for deblock, the writer's quantiser scales)."""
+    from amatsukaze_tpu_torch.pipeline.decoders import decode_mpeg2_ps_file
+    from amatsukaze_tpu_torch.pipeline.filter_stage import run_filter_stage
+    from amatsukaze_tpu_torch.ts.qp_extract import QpMapSource
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    n = ts.num_frames
+    h, w = fmt.height, fmt.width
+    qp_ps = QpMapSource.from_file(ps)
+    if len(qp_ps.results) != n or not all(
+            np.array_equal(r.qp, m) for r, m in zip(qp_ps.results,
+                                                    ts.qp_maps)):
+        raise AssertionError("QP maps read from the PS differ from the "
+                             "writer's quantiser scales")
+    out = {}
+    for mode, post, qp_ref in (("kfm_vfr", "", None),
+                               ("yadif", "deblock",
+                                QpMapSource.from_maps(ts.qp_maps))):
+        runs = {}
+        for label in ("ts", "host"):
+            sink = Sink(((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            with native_mpeg2_only():
+                res = run_filter_stage(
+                    AMTContext(level="warn"),
+                    (lambda: decode_mpeg2_ps_file(ps)) if label == "ts"
+                    else (lambda: iter(ts.recon)), n, fmt, logos, mode, sink,
+                    batch=BATCH, device=dev,
+                    cm=cm if label == "ts" else ref_cm, post_filter=post,
+                    qp_source=(qp_ps if label == "ts" else qp_ref)
+                    if post else None)
+            sync(dev)
+            runs[label] = (res, sink, time.perf_counter() - t0, read_counts())
+        (res, sink, secs, counts), (ref, rsink, _, _) = runs["ts"], \
+            runs["host"]
+        same_result(res, ref, sink, rsink, f"ts stage {mode}")
+        kernel = "costs" if mode == "kfm_vfr" else "yadif"
+        if counts.get(kernel, 0) <= 0 or counts.get("logo_eval", 0) != 0:
+            raise AssertionError(f"ts stage {mode} launches {counts}")
+        name = mode + (f" + {post}" if post else "")
+        log(f"ts stage {name}: {n} frames decoded and filtered in "
+            f"{secs:.3f} s = {n / secs:.2f} frames/s; {len(sink.digests)} "
+            f"frames out; launches {counts}; decisions, plan and every "
+            f"digest equal to the stage fed from host RAM")
+        out[mode] = dict(seconds=secs, fps=n / secs, launches=counts,
+                         out_frames=len(sink.digests))
+    return out
+
+
+def ts_phase(dev, native_build, name: str = "broadcast") -> dict:
+    """The phase over the short broadcast layout of utils/synth_ts.py at one
+    of its sizes ("broadcast": 1440x1080i, 96 frames)."""
+    import tempfile
+
+    th, box = native_build
+    t0 = time.perf_counter()
+    th.join()
+    if box.get("lib") is None:
+        raise AssertionError("native/libamatsukaze_native.so did not build "
+                             "(the card's host needs g++)")
+    log(f"native library: built and loaded in {box['seconds']:.2f} s (on a "
+        f"thread since the start; waited {time.perf_counter() - t0:.2f} s)")
+    with tempfile.TemporaryDirectory() as work:
+        wrote = ts_write(work, name)
+        ts, fmt, logos = wrote["ts"], wrote["fmt"], wrote["logos"]
+        split = ts_split(work, ts)
+        out = {"writer": {k: wrote[k] for k in ("seconds", "mb")},
+               "split": {k: split[k] for k in ("seconds", "mb_per_s")},
+               "decode": ts_decode(split["ps"], ts)}
+        audio = ts_audio(split, ts)
+        cm = ts_cm(dev, split["ps"], ts, fmt, logos, audio["pcm"])
+        out["cm"] = {k: cm[k] for k in ("seconds", "fps", "launches")}
+        out["stage"] = ts_stage(dev, split["ps"], ts, fmt, logos,
+                                cm["result"], cm["host_result"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1923,6 +2221,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
+    native_build = start_native_build()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
@@ -1978,12 +2277,17 @@ def main() -> int:
     mesh = mesh_phase(dev, clip, fmt, logos, main, smi)
     log(f"phase mesh: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    front = ts_phase(dev, native_build)
+    log(f"phase ts front end: {time.perf_counter() - t0:.2f} s")
+
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
         ("yadif_fieldmatch[yadif]", "yadif_fieldmatch.cu",
          "amatsukaze_tpu/ops/fused_filter.py:335",
          main["yadif"]["launches"].get("yadif", 0)
          + mesh["stage"]["yadif"]["launches"]["yadif"]
+         + front["stage"]["yadif"]["launches"]["yadif"]
          + sum(c.get("yadif", 0) for c in mesh["records"].values()),
          checks["yadif_y"]),
         ("yadif_fieldmatch[yadif_bottom]", "yadif_fieldmatch.cu",
@@ -2000,7 +2304,8 @@ def main() -> int:
                for p in (1, 2))
          + mesh["stage"]["kfm_vfr"]["launches"]["costs"]
          + mesh["visible"]["launches"]["costs"]
-         + mesh["records"]["kfm_vfr"].get("costs", 0), checks["costs_y"]),
+         + mesh["records"]["kfm_vfr"].get("costs", 0)
+         + front["stage"]["kfm_vfr"]["launches"]["costs"], checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
          + main["yadif"]["launches"]["logo_eval"]
@@ -2009,7 +2314,8 @@ def main() -> int:
          + modes["logo"]["launches"]["logo_eval"]
          + sum(mesh["stage"][m]["launches"]["logo_eval"]
                for m in ("kfm_vfr", "yadif"))
-         + mesh["steps"]["launches"]["logo_eval"],
+         + mesh["steps"]["launches"]["logo_eval"]
+         + front["cm"]["launches"]["logo_eval"],
          checks["logo_eval_u8_f11"]),
     ]
     kernels = []

@@ -37,6 +37,34 @@ def test_fresh_import_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# The TS front end (copies of the JAX package's host layers) and its test
+# data writer: each imports alone, without JAX.
+FRONT_END = [
+    "reform", "reform.stream_reform", "pipeline.settings", "io",
+    "io.ps_writer", "audio", "audio.aac_tables", "audio.aac",
+    "audio.sbr_tables", "audio.sbr", "audio.ps_tables", "audio.ps",
+    "audio.aac_native", "captions", "captions.arib", "captions.b24",
+    "ts.info", "pipeline.splitter", "pipeline.probe", "video",
+    "video.mpeg2_ref", "video.native", "video.avdec", "pipeline.decoders",
+    "pipeline.frame_source", "ts.qp_extract", "utils.synth_ts",
+]
+
+
+@pytest.mark.parametrize("module", FRONT_END)
+def test_front_end_module_imports_alone(module):
+    code = (f"import sys, importlib\n"
+            f"importlib.import_module('amatsukaze_tpu_torch.{module}')\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'amatsukaze_tpu')]\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert (PKG / (module.replace(".", "/") + ".py")).exists() or \
+        (PKG / module.replace(".", "/") / "__init__.py").exists()
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text())

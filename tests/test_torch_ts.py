@@ -13,11 +13,9 @@ run_filter_stage: frames bit-equal to the JAX FilterGraph fed by the JAX
 QpMapSource of the same stream.
 """
 
-import dataclasses
-import enum
-
 import numpy as np
 import pytest
+from torch_compare import plain
 from torch_threads import one_torch_thread  # noqa: F401
 
 import h264_gen
@@ -136,29 +134,6 @@ def one_native_library():
 @pytest.fixture(scope="module")
 def streams():
     return {k: make() for k, make in STREAMS.items()}
-
-
-def plain(x):
-    """A value as comparable primitives: class names and fields of
-    dataclasses and objects, enum names and values, bytes."""
-    if isinstance(x, enum.Enum):
-        return (type(x).__name__, x.name, x.value)
-    if isinstance(x, (bytes, bytearray, memoryview)):
-        return bytes(x)
-    if isinstance(x, (list, tuple)):
-        return [plain(v) for v in x]
-    if isinstance(x, dict):
-        return {k: plain(v) for k, v in x.items()}
-    if isinstance(x, np.ndarray):
-        return (x.dtype.str, x.shape, x.tobytes())
-    if dataclasses.is_dataclass(x):
-        return (type(x).__name__, {f.name: plain(getattr(x, f.name))
-                                   for f in dataclasses.fields(x)})
-    if hasattr(x, "__slots__") or hasattr(x, "__dict__"):
-        names = list(getattr(x, "__slots__", ())) + list(
-            getattr(x, "__dict__", {}))
-        return (type(x).__name__, {k: plain(getattr(x, k)) for k in names})
-    return x
 
 
 # ---------------------------------------------------------------------------
