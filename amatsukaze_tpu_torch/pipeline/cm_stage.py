@@ -4,12 +4,15 @@ decision and the JLS elements of the chapters.
 
 Counterpart of the in-process path of TranscodePipeline._analyze_video_file
 (amatsukaze_tpu/pipeline/transcode.py:383-616), _detect_silence (:691-720)
-and _jls_elements (:793-805), without the stream-reform layer and the
-external chapter_exe/join_logo_scp tools:
+and _jls_elements (:793-805):
 
     cm = run_cm_analysis(ctx, open_frames, num_frames, fmt, logos,
                          pcm_s16=pcm)
     cm.result.trims, cm.result.cmzones, cm.jls_elements
+
+The port's pipeline/transcode.py calls its two steps, scan_video_file and
+decide, itself: between them come the external chapter_exe/join_logo_scp
+tools, and its temp files carry the video index in their names.
 
 Each batch of luma frames crosses to the device once, as uint8: the scene
 metrics run on it (with the previous batch's last frame as the carry) and
@@ -53,18 +56,24 @@ FILES = dict(scpos="chapter_exe_o.txt", logo_frames="logof.txt",
 
 @dataclass
 class CMStageResult:
-    matcher: LogoFrameMatcher | None
-    best_logo: int  # -1 without logos
-    fade: np.ndarray | None  # per-frame erase fade; None under no_delogo
-    scene_changes: list
-    silence: list  # [start, end) frame spans
-    logo_spans: list | None  # logo-on [start, end) frame spans
-    result: CMAnalyzeResult  # trims, divs, cmzones, scene_changes, logopath
-    jls_elements: list
+    """What the CM pass of one video file found. scan_video_file fills
+    the fields of the streaming pass; `result` and `jls_elements` are set
+    by the decision that follows."""
+    matcher: LogoFrameMatcher | None = None
+    best_logo: int = -1  # -1 without logos
+    fade: np.ndarray | None = None  # per-frame erase fade; None under no_delogo
+    scene_changes: list = field(default_factory=list)
+    silence: list = field(default_factory=list)  # [start, end) frame spans
+    logo_spans: list | None = None  # logo-on [start, end) frame spans
+    # trims, divs, cmzones, scene_changes, logopath
+    result: CMAnalyzeResult | None = None
+    jls_elements: list = field(default_factory=list)
     num_frames: int = 0  # frames the pass saw
     # wall seconds: "stream" (the luma pass, ending in its last fetch),
     # "silence", "decision"
     seconds: dict = field(default_factory=dict)
+    logo_ratio: float = 0.0
+    logo_path: str = ""  # the chosen logo's name in the CM result
 
 
 def luma_pass(ys, num_frames: int, batch: int, device,
@@ -171,13 +180,95 @@ def jls_elements(result: CMAnalyzeResult, num_frames: int,
             for a, b in zip(bounds, bounds[1:]) if b > a]
 
 
+def cm_files(out_dir: str | None) -> dict:
+    """The paths of the FILES in `out_dir` (none without one)."""
+    if out_dir is None:
+        return {}
+    return {k: os.path.join(out_dir, v) for k, v in FILES.items()}
+
+
+def _write(files: dict, name: str, text: str) -> None:
+    if name in files:
+        with open(files[name], "w") as f:
+            f.write(text)
+
+
+def scan_video_file(ctx, open_frames, num_frames: int, fmt, logos: list,
+                    pcm_s16=None, no_delogo: bool = False, batch: int = 32,
+                    device=None, files: dict | None = None,
+                    logo_names: list | None = None) -> CMStageResult:
+    """The streaming pass of the CM analysis (transcode.py:427-592): scene
+    metrics and logo scores from one pass over at most `num_frames` luma
+    planes, the logo choice and its fade curve, then the silence of
+    `pcm_s16`. files: FILES names -> paths; the scene-change and logo-frame
+    files are written where named. logo_names: what the result calls each
+    logo (the JAX pipeline names the .lgd file); by default its header
+    name."""
+    files = files or {}
+    scan = CMStageResult()
+    fps = fmt.frame_rate if fmt.frame_rate_num else 29.97
+    t0 = time.perf_counter()
+    if logos:
+        scan.matcher = LogoFrameMatcher(ctx, logos, device=device)
+        # the 11-step fade sweep feeds both matching and the per-frame
+        # erase fades (ref AMTAnalyzeLogo's NUM_FADE)
+        scan.matcher.begin_scan(fmt.width, fmt.height, fps,
+                                FADE_STEPS_NO_DELOGO if no_delogo
+                                else FADE_STEPS)
+    scan.num_frames, diffs, hists = luma_pass(
+        (planes[0] for planes in open_frames()), num_frames, batch, device,
+        scan.matcher)
+    matcher = scan.matcher
+    if matcher is not None:
+        matcher.end_scan()
+    scan.seconds["stream"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if len(diffs):
+        corr = cm_ops.histogram_correlation_from_hists(hists)
+        scan.scene_changes = cm_ops.detect_scene_changes(diffs, corr)
+        _write(files, "scpos",
+               format_scene_changes_text(scan.scene_changes, []))
+    if matcher is not None and scan.num_frames:
+        best = scan.best_logo = matcher.select_logo()
+        if "logo_frames" in files:
+            matcher.write_result(files["logo_frames"])
+        scan.logo_spans = [(iv.s_best, iv.e_best + 1)
+                           for iv in matcher.intervals()]
+        scan.logo_ratio = matcher.logo_ratio
+        scan.logo_path = (logo_names[best] if logo_names is not None
+                          else logos[best].header.name or f"logo{best}")
+        if not no_delogo:
+            scan.fade = matcher.fade_curve()
+    scan.seconds["decision"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    scan.silence = detect_silence(pcm_s16, fps, device)
+    scan.seconds["silence"] = time.perf_counter() - t0
+    return scan
+
+
+def decide(analyzer: CMAnalyzer, scan: CMStageResult,
+           files: dict | None = None) -> CMAnalyzeResult:
+    """The CM decision from what the pass found, and its trim and div
+    files where `files` names them (transcode.py:603-611)."""
+    files = files or {}
+    result = analyzer.analyze(scan.logo_spans, scan.logo_ratio,
+                              scan.logo_path, scan.scene_changes,
+                              scan.silence)
+    _write(files, "trim", format_trim_avs(result.trims) + "\n")
+    _write(files, "div", "\n".join(str(d) for d in result.divs[:-1]) + "\n")
+    return result
+
+
 def run_cm_analysis(ctx, open_frames, num_frames: int, fmt, logos: list,
                     pcm_s16=None, jls_script=None, jls_options=None,
                     loose_logo_detection: bool = False,
                     no_delogo: bool = False, pid_changes=None,
                     pmt_cut_side_rate=(0, 0), batch: int = 32, device=None,
                     out_dir: str | None = None) -> CMStageResult:
-    """CM analysis of one video file.
+    """CM analysis of one video file: scan_video_file, decide, the PMT cut
+    and the JLS elements.
 
     open_frames() returns an iterator of (Y, U, V) planes; only Y is read.
     logos: candidate LogoData (may be empty); the result names the chosen
@@ -189,74 +280,21 @@ def run_cm_analysis(ctx, open_frames, num_frames: int, fmt, logos: list,
     files are written there (FILES)."""
     device = resolve_device(device)
     fps = fmt.frame_rate if fmt.frame_rate_num else 29.97
-    seconds = {}
+    files = cm_files(out_dir)
     analyzer = CMAnalyzer(ctx, num_frames, fps, jls_options=jls_options,
                           loose_logo_detection=loose_logo_detection,
                           jls_script=jls_script)
-    matcher = None
-    best = -1
-    fade = None
-    logo_spans = None
-    logo_ratio = 0.0
-    logo_path = ""
-    scene_changes: list[int] = []
-    silence: list[tuple[int, int]] = []
-    count = 0
-
-    def write(name: str, text: str) -> None:
-        if out_dir is not None:
-            with open(os.path.join(out_dir, FILES[name]), "w") as f:
-                f.write(text)
-
+    cma = CMStageResult()
     if num_frames > 0:
-        t0 = time.perf_counter()
-        if logos:
-            matcher = LogoFrameMatcher(ctx, logos, device=device)
-            # the 11-step fade sweep feeds both matching and the per-frame
-            # erase fades (ref AMTAnalyzeLogo's NUM_FADE)
-            matcher.begin_scan(fmt.width, fmt.height, fps,
-                               FADE_STEPS_NO_DELOGO if no_delogo
-                               else FADE_STEPS)
-        count, diffs, hists = luma_pass(
-            (planes[0] for planes in open_frames()), num_frames, batch,
-            device, matcher)
-        if matcher is not None:
-            matcher.end_scan()
-        seconds["stream"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        if len(diffs):
-            corr = cm_ops.histogram_correlation_from_hists(hists)
-            scene_changes = cm_ops.detect_scene_changes(diffs, corr)
-            write("scpos", format_scene_changes_text(scene_changes, []))
-        if matcher is not None and count:
-            best = matcher.select_logo()
-            if out_dir is not None:
-                matcher.write_result(
-                    os.path.join(out_dir, FILES["logo_frames"]))
-            logo_spans = [(iv.s_best, iv.e_best + 1)
-                          for iv in matcher.intervals()]
-            logo_ratio = matcher.logo_ratio
-            logo_path = logos[best].header.name or f"logo{best}"
-            if not no_delogo:
-                fade = matcher.fade_curve()
-        seconds["decision"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        silence = detect_silence(pcm_s16, fps, device)
-        seconds["silence"] = time.perf_counter() - t0
-
+        cma = scan_video_file(ctx, open_frames, num_frames, fmt, logos,
+                              pcm_s16, no_delogo, batch, device, files)
     t0 = time.perf_counter()
-    result = analyzer.analyze(logo_spans, logo_ratio, logo_path,
-                              scene_changes, silence)
-    write("trim", format_trim_avs(result.trims) + "\n")
-    write("div", "\n".join(str(d) for d in result.divs[:-1]) + "\n")
+    decide(analyzer, cma, files)
     if any(r > 0 for r in pmt_cut_side_rate):
         analyzer.apply_pmt_cut(pmt_cut_side_rate, list(pid_changes or []))
-    elements = jls_elements(analyzer.result, num_frames, fps)
-    write("jls", format_jls(elements))
-    seconds["decision"] = (seconds.get("decision", 0.0)
-                           + time.perf_counter() - t0)
-    return CMStageResult(matcher, best, fade, scene_changes, silence,
-                         logo_spans, analyzer.result, elements, count,
-                         seconds)
+    cma.result = analyzer.result
+    cma.jls_elements = jls_elements(analyzer.result, num_frames, fps)
+    _write(files, "jls", format_jls(cma.jls_elements))
+    cma.seconds["decision"] = (cma.seconds.get("decision", 0.0)
+                               + time.perf_counter() - t0)
+    return cma

@@ -14,8 +14,17 @@ instead of an encoder pump.
     result = run_filter_stage(ctx, open_frames, num_frames, fmt, logos,
                               "kfm_vfr", sink, cm=cm)
 
+run_filter_stage is two steps, which an encoder driver calls apart because
+its y4m header, timecode file and encoder arguments need the output spec
+before the first frame, and a two-pass encode reads the frames twice:
+
+    st = analyze_filter_stage(ctx, open_frames, ...)  # graph, spec, zones
+    frames, bits = output_frames(st)  # once per encoder pass
+    pump_output(st, frames, sink)
+
 `open_frames()` returns a fresh iterator of (Y, U, V) uint8 planes of the
-file's frames. The passes over it:
+file's frames (with `video_frames`, of the whole video stream, of which
+the stage keeps the selected frames after the erase). The passes over it:
 
 - logo pass, only without `cm`: the luma stream of pipeline/cm_stage.py with
   the scene metrics off, only the logos' windows crossing to the device
@@ -133,20 +142,62 @@ def analysis_cache_cap(cap_bytes: int | None = None) -> int:
     return int(min(max(total // 8, 256 << 20), 4 << 30))
 
 
+@dataclass
+class FilterAnalysis:
+    """What the analysis step leaves for the output passes: the graph and
+    its output spec, the eraser, the frame spill (None when the output pass
+    decodes again) and the encoder zones. `output_frames` and `pump_output`
+    may run over it more than once (a two-pass encode)."""
+    matcher: LogoFrameMatcher | None
+    best_logo: int
+    fade: np.ndarray | None
+    graph: FilterGraph
+    spec: FilterOutput
+    eraser: LogoEraser
+    spill: FrameSpill | None
+    zones: list
+    open_frames: object
+    wanted: set | None  # source indices of the output file's frames
+    batch: int
+    seconds: dict
+    shards: int
+
+
 def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
-                     mode: str, sink, batch: int = 32, device=None,
-                     no_delogo: bool = False, kfm_ucf: bool = True,
-                     cm=None, erase_logos=(), cm_zones_mode: str = "both",
-                     analysis_cache_bytes: int | None = None,
-                     timecode_path: str | None = None,
-                     dump_path: str | None = None, post_filter: str = "",
-                     qp_source=None, resize=None, open_section=None,
-                     autovfr_parallel: int = 2,
-                     autovfr_prefix: str | None = None,
-                     filter_devices=1) -> FilterStageResult:
+                     mode: str, sink, **kw) -> FilterStageResult:
     """Run the filter core over one output file and call `sink((y, u, v))`
     with every output frame (uint8 planes; uint16 on the 10-bit path), in
-    order.
+    order: analyze_filter_stage (whose keywords `kw` are), then one output
+    pass."""
+    st = analyze_filter_stage(ctx, open_frames, num_frames, fmt, logos,
+                              mode, **kw)
+    t0 = time.perf_counter()
+    frames, _ = output_frames(st)
+    n_out = pump_output(st, frames, sink)
+    st.seconds["output"] = time.perf_counter() - t0
+    return FilterStageResult(st.matcher, st.best_logo, st.fade, st.graph,
+                             st.spec, n_out, st.zones,
+                             len(st.spill.frames) if st.spill else 0,
+                             st.seconds, st.shards)
+
+
+def analyze_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
+                         mode: str, batch: int = 32, device=None,
+                         no_delogo: bool = False, kfm_ucf: bool = True,
+                         cm=None, erase_logos=(),
+                         cm_zones_mode: str = "both",
+                         analysis_cache_bytes: int | None = None,
+                         timecode_path: str | None = None,
+                         dump_path: str | None = None, post_filter: str = "",
+                         qp_source=None, resize=None, open_section=None,
+                         autovfr_parallel: int = 2,
+                         autovfr_prefix: str | None = None,
+                         filter_devices=1,
+                         video_frames=None) -> FilterAnalysis:
+    """The stage up to its output spec: the logo pass without `cm`, the
+    eraser, the graph's analysis with the frame spill, the spec, the
+    timecode and dump files and the encoder zones. Its output passes are
+    output_frames + pump_output.
 
     cm: the file's CMStageResult (pipeline/cm_stage.run_cm_analysis). Its
     best logo is erased with its fade curve (none when it ran under
@@ -181,10 +232,18 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     filter_devices: shard the filter graph over that many devices
     (FilterGraph.set_mesh; an int or a parallel.mesh.Mesh), as
     transcode.py:849-852 does with `--devices N`; one runs unsharded.
-    `result.shards` says how many shards ran."""
+    `result.shards` says how many shards ran.
+
+    video_frames: the source indices of the output file's frames, when the
+    file is not the whole of what open_frames() yields (a CM split, a
+    format change): the fades index the source, so the stage erases every
+    frame it decodes and keeps the selected ones only after the erase, as
+    the JAX pipeline does (transcode.py:909-929, :1153, :1240); the CM
+    zones map through it. `num_frames` is then len(video_frames)."""
     if cm_zones_mode not in CM_ZONES_MODES:
         raise ValueError(f"cm_zones_mode must be one of {CM_ZONES_MODES}")
     post_chain = build_post_chain(post_filter)
+    wanted = None if video_frames is None else set(video_frames)
     seconds = {}
     t0 = time.perf_counter()
     entries = []
@@ -199,7 +258,11 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
             matcher.begin_scan(fmt.width, fmt.height, fmt.frame_rate,
                                FADE_STEPS_NO_DELOGO if no_delogo
                                else FADE_STEPS)
-            luma_pass((planes[0] for planes in open_frames()), num_frames,
+            # the fades index the source: score every frame up to the
+            # last one selected
+            luma_pass((planes[0] for planes in open_frames()),
+                      num_frames if wanted is None
+                      else max(wanted, default=-1) + 1,
                       batch, device, matcher, scene_metrics=False)
             matcher.end_scan()
             if matcher.num_frames:
@@ -210,12 +273,6 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     entries.extend((lg, None) for lg in erase_logos)
     eraser = LogoEraser(ctx, entries, fmt.width, fmt.height, device=device)
     seconds["logo_match"] = time.perf_counter() - t0
-
-    def filtered_frames():
-        src = open_frames()
-        if eraser:
-            return eraser.erase_iter(src, batch)
-        return (tuple(normalize_u8(p) for p in planes) for planes in src)
 
     t0 = time.perf_counter()
     fg = FilterGraph(ctx, mode=mode, batch=batch, device=device,
@@ -229,14 +286,16 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
         fg.set_mesh(filter_devices)
     spill = None
     if fg.mode == FilterGraph.MODE_AUTOVFR:
-        fg.analyze_autovfr(open_section or _forward_opener(open_frames),
+        fg.analyze_autovfr(open_section
+                           or _forward_opener(open_frames, wanted),
                            num_frames, parallel=max(1, autovfr_parallel),
                            log_prefix=autovfr_prefix)
     elif fg.mode in FilterGraph.KFM_FAMILY:
         spill = FrameSpill(analysis_cache_cap(analysis_cache_bytes))
 
         def tee_y():
-            for planes in filtered_frames():
+            for planes in _select(_erased(open_frames(), eraser, batch),
+                                  wanted):
                 spill.offer(planes)
                 yield planes[0]
 
@@ -260,49 +319,75 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
         zones = [EncoderZone(z.start_frame, z.end_frame)
                  for z in cm.result.cmzones]
     if fg.mode != FilterGraph.MODE_NONE:
-        zones = make_out_zones(zones, list(range(num_frames)),
+        zones = make_out_zones(zones, list(range(num_frames))
+                               if video_frames is None else video_frames,
                                spec.num_out_frames, spec.time_codes,
                                fmt.frame_rate_num, fmt.frame_rate_denom)
+    return FilterAnalysis(matcher, best, fade, fg, spec, eraser, spill,
+                          zones, open_frames, wanted, batch, seconds,
+                          max(1, shards))
 
-    t0 = time.perf_counter()
-    if spill is not None:
-        src = iter(spill.frames)
-    else:
-        src = iter(open_frames())
-        first = next(src, None)
-        src = itertools.chain(() if first is None else (first,), src)
-        if (first is not None and first[0].dtype == np.uint16 and not eraser
-                and fg.mode == FilterGraph.MODE_NONE):
-            # Main10: the chain and the resize run from and to 10 bits;
-            # without either the planes pass through
-            if fg.post_chain is not None or fg.resize is not None:
-                fg.src_bits = 10
-        elif eraser:
-            src = eraser.erase_iter(src, batch)
-        else:
-            src = (tuple(normalize_u8(p) for p in planes) for planes in src)
+
+def output_frames(st: FilterAnalysis):
+    """The output pass's source frames and the bits of the frames the sink
+    will get (8, or 10 for uint16 planes): the spill when it holds the
+    selection; else the frames decoded again, erased, then selected.
+
+    The 10-bit rule (transcode.py:1166-1192): uint16 planes stay 10-bit
+    only in mode "none" without a logo to erase (the Main10 case: a post
+    chain and the resize run from and to 10 bits; with neither, the planes
+    pass through); every other graph filters the rounded 8-bit downconvert
+    ((x + 2) >> 2)."""
+    fg, eraser = st.graph, st.eraser
+    if st.spill is not None:
+        return iter(st.spill.frames), 8
+    src = iter(st.open_frames())
+    first = next(src, None)
+    src = itertools.chain(() if first is None else (first,), src)
+    if (first is not None and first[0].dtype == np.uint16 and not eraser
+            and fg.mode == FilterGraph.MODE_NONE):
+        if fg.post_chain is not None or fg.resize is not None:
+            fg.src_bits = 10
+        return _select(src, st.wanted), 10
+    return _select(_erased(src, eraser, st.batch), st.wanted), 8
+
+
+def pump_output(st: FilterAnalysis, frames, sink) -> int:
+    """One output pass of output_frames' frames through the graph into the
+    sink; returns the number of frames handed to the sink."""
+    fg = st.graph
     if (fg.mode == FilterGraph.MODE_NONE and fg.post_chain is None
             and fg.resize is None):
         n_out = 0
-        for planes in src:  # nothing to filter: straight to the sink
+        for planes in frames:  # nothing to filter: straight to the sink
             sink(planes)
             n_out += 1
-    else:
-        n_out = pump_filtered(fg, src, sink, batch)
-    seconds["output"] = time.perf_counter() - t0
-    return FilterStageResult(matcher, best, fade, fg, spec, n_out, zones,
-                             len(spill.frames) if spill is not None else 0,
-                             seconds, max(1, shards))
+        return n_out
+    return pump_filtered(fg, frames, sink, st.batch)
 
 
-def _forward_opener(open_frames):
-    """A section opener over open_frames(): decode from the start and skip
-    to the section (the JAX section opener's own fallback,
-    transcode.py:779-788)."""
+def _erased(src, eraser: LogoEraser, batch: int):
+    """The frames erased (8-bit), or brought to uint8 without an eraser."""
+    if eraser:
+        return eraser.erase_iter(src, batch)
+    return (tuple(normalize_u8(p) for p in planes) for planes in src)
+
+
+def _select(src, wanted: set | None):
+    """The frames whose source index is in `wanted` (all with None)."""
+    if wanted is None:
+        return src
+    return (planes for i, planes in enumerate(src) if i in wanted)
+
+
+def _forward_opener(open_frames, wanted: set | None = None):
+    """A section opener over open_frames(): decode from the start, keep the
+    selected frames and skip to the section (the JAX section opener's own
+    fallback, transcode.py:779-788)."""
 
     def opener(start: int, end: int):
         start = max(0, start)
-        for i, planes in enumerate(open_frames()):
+        for i, planes in enumerate(_select(open_frames(), wanted)):
             if i >= end:
                 break
             if i >= start:

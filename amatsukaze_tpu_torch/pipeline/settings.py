@@ -358,19 +358,8 @@ _COLOR_MATRIX = {0: "GBR", 1: "bt709", 4: "fcc", 5: "bt470bg", 6: "smpte170m",
                  7: "smpte240m", 8: "YCgCo", 9: "bt2020nc", 10: "bt2020c"}
 
 
-# The encoder shims live in the port's tools package, which comes with the
-# encode side (ROADMAP.md Queue 1); until it is there the commands pass
-# through unchanged.
+# the port's own encoder shims (tools/x264_shim.py, tools/aac_shim.py)
 _TOOLS = __package__.rsplit(".", 1)[0] + ".tools"
-
-
-def _shim_available(name: str) -> bool:
-    import importlib.util
-
-    try:
-        return importlib.util.find_spec(f"{_TOOLS}.{name}") is not None
-    except ImportError:
-        return False
 
 
 def resolve_encoder_command(args: str, encoder: Encoder) -> str:
@@ -400,8 +389,6 @@ def resolve_encoder_command(args: str, encoder: Encoder) -> str:
     except Exception:  # noqa: BLE001
         return args
     rest = shlex.join(shlex.split(args)[1:])
-    if not _shim_available("x264_shim"):
-        return args
     return (f'"{_sys.executable}" -m {_TOOLS}.x264_shim '
             f"--shim-codec {codec} {rest}")
 
@@ -482,8 +469,6 @@ def resolve_audio_encoder_command(args: str) -> str:
     except Exception:  # noqa: BLE001
         return args
     rest = shlex.join(shlex.split(args)[1:])
-    if not _shim_available("aac_shim"):
-        return args
     return (f'"{_sys.executable}" -m {_TOOLS}.aac_shim '
             f"{rest}")
 

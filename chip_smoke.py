@@ -25,8 +25,9 @@ result line):
    just after; the same stage with the plain versions patched in must give
    the same logo, fade curve, cycle decisions, VFR plan and frames. Then
    the yadif mode over the same clip, the same way;
-4. one more kfm_vfr run under torch.profiler: the device busy share and
-   the kernels that take the device time; then the logo scan pass alone:
+4. one more kfm_vfr run under torch.profiler, over the main clip's last
+   PROFILE_FRAMES frames: the device busy share and the kernels that take
+   the device time; then the logo scan pass alone:
    nothing runs on the device but the copies and one logo_eval launch per
    batch and logo;
 5. the same stage on a small clip on the CPU and on the card: identical;
@@ -103,7 +104,16 @@ result line):
    QpMapSource.from_file(<the PS>), the counts set to 0 just before each
    and read just after, equal the same passes fed the reconstruction (and
    the writer's quantiser scales) from host RAM. native/ builds on a
-   thread from the start (it needs g++).
+   thread from the start (it needs g++);
+12. "transcode": amatsukaze_tpu_torch.cli.main (`python -m
+   amatsukaze_tpu_torch.cli --mode ts` in this process, so that the launch
+   counts can be read) over the same TS with its two logos as .lgd files,
+   a fake encoder that copies its y4m stdin to -o, and the native MPEG-2
+   decoder: kfm_vfr, yadif + deblock, and --mode cm, the counts set to 0
+   just before each and read just after. Every output frame's digest
+   equals the ts phase's stage run of the same mode, the trims and the
+   chosen logo equal its CM pass's; K3 runs in each CM pass, K2 in
+   kfm_vfr, K1 in yadif; the mux route is logged.
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -755,15 +765,23 @@ def main_path(dev, clip, fmt, logos) -> dict:
     return out
 
 
+# the main clip's last four batches (frames 172-299): 68 frames of film and
+# the 60 of interlaced video, with the logo on
+PROFILE_FRAMES = 128
+
+
 def profile_stage(dev, clip, fmt, logos) -> dict:
     """Device busy share and the kernels that take the device time, over
-    one kfm_vfr run of the main path (torch.profiler, CUPTI)."""
+    one kfm_vfr run of the main path's last PROFILE_FRAMES frames
+    (torch.profiler, CUPTI; the profiler costs about three times the
+    run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = run_stage(clip, fmt, logos, "kfm_vfr", dev)
+        _, _, secs = run_stage(clip[-PROFILE_FRAMES:], fmt, logos,
+                               "kfm_vfr", dev)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
@@ -775,7 +793,8 @@ def profile_stage(dev, clip, fmt, logos) -> dict:
     if not busy_s:
         log("profile: the profiler recorded no device time (not measured)")
         return out
-    log(f"profile kfm_vfr: wall {secs:.3f} s, device busy {busy_s:.4f} s "
+    log(f"profile kfm_vfr (last {PROFILE_FRAMES} frames): wall {secs:.3f} s, "
+        f"device busy {busy_s:.4f} s "
         f"({100 * busy_s / secs:.2f}%)")
     for name, count, ms in out["top"]:
         log(f"profile   {ms:9.3f} ms {count:6d}x  {name}")
@@ -1295,7 +1314,7 @@ def run_post_configs(dev, clip, logos) -> dict:
     return out
 
 
-PROFILE_POST_FRAMES = 40  # the head ramp and one batch
+PROFILE_POST_FRAMES = 40  # the head ramp and one whole batch
 
 
 def profile_post(dev, clip, logos) -> dict:
@@ -1322,7 +1341,8 @@ def profile_post(dev, clip, logos) -> dict:
     if not busy_s:
         log("profile post chain: no device time recorded (not measured)")
         return dict(wall_seconds=secs, device_busy_share=None)
-    log(f"profile yadif+chain+resize: wall {secs:.3f} s, device busy "
+    log(f"profile yadif+chain+resize ({PROFILE_POST_FRAMES} frames): wall "
+        f"{secs:.3f} s, device busy "
         f"{busy_s:.4f} s ({100 * busy_s / secs:.2f}%)")
     for e in sorted(acts, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile post {e.self_device_time_total / 1e3:9.3f} ms "
@@ -2181,15 +2201,14 @@ def ts_stage(dev, ps: str, ts, fmt, logos, cm, ref_cm) -> dict:
             f"frames out; launches {counts}; decisions, plan and every "
             f"digest equal to the stage fed from host RAM")
         out[mode] = dict(seconds=secs, fps=n / secs, launches=counts,
-                         out_frames=len(sink.digests))
+                         out_frames=len(sink.digests), digests=sink.digests)
     return out
 
 
-def ts_phase(dev, native_build, name: str = "broadcast") -> dict:
+def ts_phase(dev, native_build, work: str, name: str = "broadcast") -> dict:
     """The phase over the short broadcast layout of utils/synth_ts.py at one
-    of its sizes ("broadcast": 1440x1080i, 96 frames)."""
-    import tempfile
-
+    of its sizes ("broadcast": 1440x1080i, 96 frames), written to `work`
+    (the transcode phase reads the same TS)."""
     th, box = native_build
     t0 = time.perf_counter()
     th.join()
@@ -2198,18 +2217,157 @@ def ts_phase(dev, native_build, name: str = "broadcast") -> dict:
                              "(the card's host needs g++)")
     log(f"native library: built and loaded in {box['seconds']:.2f} s (on a "
         f"thread since the start; waited {time.perf_counter() - t0:.2f} s)")
-    with tempfile.TemporaryDirectory() as work:
-        wrote = ts_write(work, name)
-        ts, fmt, logos = wrote["ts"], wrote["fmt"], wrote["logos"]
-        split = ts_split(work, ts)
-        out = {"writer": {k: wrote[k] for k in ("seconds", "mb")},
-               "split": {k: split[k] for k in ("seconds", "mb_per_s")},
-               "decode": ts_decode(split["ps"], ts)}
-        audio = ts_audio(split, ts)
-        cm = ts_cm(dev, split["ps"], ts, fmt, logos, audio["pcm"])
-        out["cm"] = {k: cm[k] for k in ("seconds", "fps", "launches")}
-        out["stage"] = ts_stage(dev, split["ps"], ts, fmt, logos,
-                                cm["result"], cm["host_result"])
+    wrote = ts_write(work, name)
+    ts, fmt, logos = wrote["ts"], wrote["fmt"], wrote["logos"]
+    split = ts_split(work, ts)
+    out = {"writer": {k: wrote[k] for k in ("seconds", "mb")},
+           "split": {k: split[k] for k in ("seconds", "mb_per_s")},
+           "decode": ts_decode(split["ps"], ts)}
+    audio = ts_audio(split, ts)
+    cm = ts_cm(dev, split["ps"], ts, fmt, logos, audio["pcm"])
+    out["cm"] = {k: cm[k] for k in ("seconds", "fps", "launches")}
+    out["cm_result"] = cm["result"]
+    out["stage"] = ts_stage(dev, split["ps"], ts, fmt, logos,
+                            cm["result"], cm["host_result"])
+    out.update(ts=ts, logos=logos)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: "transcode": the CLI (pipeline/transcode.py) over the same TS
+# ---------------------------------------------------------------------------
+
+# the fake x264: the y4m of its stdin to -o (no encoder on the card's host)
+FAKE_ENCODER = """#!/bin/bash
+out=""
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -o) out="$2"; shift 2;;
+    *) shift;;
+  esac
+done
+cat > "$out"
+"""
+TRANSCODE_RUNS = (  # name, CLI arguments, the ts_stage run it equals
+    ("kfm_vfr", ["--filter-mode", "kfm_vfr"], "kfm_vfr"),
+    ("yadif + deblock", ["--filter-mode", "yadif", "--post-filter",
+                         "deblock"], "yadif"),
+    ("cm", ["--mode", "cm"], None),
+)
+
+
+def transcode_run(dev, work: str, name: str, args: list, src: str,
+                  lgds: list):
+    """`python -m amatsukaze_tpu_torch.cli --mode ts ...` in this process
+    (so that the launch counts can be read), the counts set to 0 just
+    before and read just after. Returns the report, the output frames'
+    digests, the trims file, the counts and the seconds."""
+    import glob
+    import os
+
+    from amatsukaze_tpu_torch import cli
+    from amatsukaze_tpu_torch.io.y4m import Y4MReader
+    from amatsukaze_tpu_torch.utils.golden import frame_digest
+
+    run_dir = f"{work}/{name.replace(' + ', '_')}"
+    os.makedirs(run_dir)
+    argv = ["-i", src, "-o", f"{run_dir}/out", "-w", run_dir, "-e",
+            f"{work}/fake_x264", "-j", f"{run_dir}/report.json",
+            "--mpeg2decoder", "native", "--no-remove-tmp"]
+    for lgd in lgds:
+        argv += ["--logo", lgd]
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    with native_mpeg2_only():
+        # on the card as a user runs it; "cpu" only for a rehearsal here
+        rc = cli.main(argv + args,
+                      device=None if dev.type == "cuda" else "cpu")
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"transcode {name}: the CLI returned {rc}")
+    with open(f"{run_dir}/report.json") as f:
+        report = json.load(f)
+    digests, header = [], b""
+    for out in report["outfiles"]:
+        if not os.path.exists(out["path"]):  # --mode cm writes none
+            continue
+        with open(out["path"], "rb") as f:
+            header = f.readline()
+            f.seek(0)
+            r = Y4MReader(f)
+            digests += [frame_digest(p) for p in r.frames()]
+    (trim,) = glob.glob(f"{run_dir}/amt*/trim0.avs")
+    with open(trim) as f:
+        trims = f.read()
+    return report, digests, header, trims, counts, secs
+
+
+def transcode_phase(dev, work: str, front: dict) -> dict:
+    """The CLI over the ts phase's TS with its logos and the fake encoder:
+    kfm_vfr, yadif + deblock, and --mode cm. Every output frame's digest
+    equals the ts phase's stage run of the same mode (run_filter_stage fed
+    the native decoder and the CM pass), the trims and the chosen logo its
+    CM pass's; K3 runs in every CM pass, K2 in kfm_vfr, K1 in yadif."""
+    import os
+
+    from amatsukaze_tpu_torch.models.cm_analyze import format_trim_avs
+    from amatsukaze_tpu_torch.models.lgd import save_lgd
+    from amatsukaze_tpu_torch.video.avdec import avdec_available
+
+    ts, cm = front["ts"], front["cm_result"]
+    n = ts.num_frames
+    with open(f"{work}/fake_x264", "w") as f:
+        f.write(FAKE_ENCODER)
+    os.chmod(f"{work}/fake_x264", 0o755)
+    lgds = []
+    for k, lg in enumerate(front["logos"]):
+        lgds.append(f"{work}/logo{k}.lgd")
+        save_lgd(lgds[-1], lg)
+    want_trims = format_trim_avs(cm.result.trims) + "\n"
+    out = {}
+    for name, args, stage_mode in TRANSCODE_RUNS:
+        report, digests, header, trims, counts, secs = transcode_run(
+            dev, work, name, args, ts.path, lgds)
+        if (trims != want_trims
+                or report["logofiles"] != [lgds[cm.best_logo]]):
+            raise AssertionError(
+                f"transcode {name}: trims {trims!r}, logo "
+                f"{report['logofiles']} against the CM pass's {want_trims!r}"
+                f", logo {cm.best_logo}")
+        n_batches = -(-n // BATCH)
+        if counts.get("logo_eval") != len(lgds) * n_batches:
+            raise AssertionError(f"transcode {name}: K3 launches {counts}")
+        if stage_mode is None:
+            if digests or set(counts) != {"logo_eval"}:
+                raise AssertionError(f"transcode {name}: {len(digests)} "
+                                     f"frames out, launches {counts}")
+        else:
+            want = front["stage"][stage_mode]["digests"]
+            kernel = "costs" if stage_mode == "kfm_vfr" else "yadif"
+            if digests != want or counts.get(kernel, 0) <= 0:
+                bad = [k for k, (a, b) in enumerate(zip(digests, want))
+                       if a != b]
+                raise AssertionError(
+                    f"transcode {name}: {len(digests)} frames against the "
+                    f"stage's {len(want)}, differing {bad[:5]}; launches "
+                    f"{counts}")
+            route = ("bare stream (no muxer binary; the in-build remux "
+                     f"{'failed' if avdec_available() else 'unavailable'})"
+                     if header.startswith(b"YUV4MPEG2") else "in-build remux")
+            log(f"transcode {name}: mux route: {route}; y4m header "
+                f"{header.decode().strip()}")
+        what = ("split and CM pass, no encode" if stage_mode is None else
+                f"split, CM pass, filter, y4m to the fake encoder, mux; "
+                f"{len(digests)} frames out, every digest equal to the ts "
+                f"phase's stage run")
+        log(f"transcode {name}: {n} frames through the CLI in {secs:.3f} s "
+            f"= {n / secs:.2f} frames/s ({what}); trims and logo the CM "
+            f"pass's; launches {counts}")
+        out[name] = dict(seconds=secs, fps=n / secs, launches=counts,
+                         out_frames=len(digests))
     return out
 
 
@@ -2277,9 +2435,16 @@ def main() -> int:
     mesh = mesh_phase(dev, clip, fmt, logos, main, smi)
     log(f"phase mesh: {time.perf_counter() - t0:.2f} s")
 
-    t0 = time.perf_counter()
-    front = ts_phase(dev, native_build)
-    log(f"phase ts front end: {time.perf_counter() - t0:.2f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        front = ts_phase(dev, native_build, work)
+        log(f"phase ts front end: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        trans = transcode_phase(dev, work, front)
+        log(f"phase transcode: {time.perf_counter() - t0:.2f} s")
 
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
@@ -2288,6 +2453,7 @@ def main() -> int:
          main["yadif"]["launches"].get("yadif", 0)
          + mesh["stage"]["yadif"]["launches"]["yadif"]
          + front["stage"]["yadif"]["launches"]["yadif"]
+         + trans["yadif + deblock"]["launches"]["yadif"]
          + sum(c.get("yadif", 0) for c in mesh["records"].values()),
          checks["yadif_y"]),
         ("yadif_fieldmatch[yadif_bottom]", "yadif_fieldmatch.cu",
@@ -2305,7 +2471,8 @@ def main() -> int:
          + mesh["stage"]["kfm_vfr"]["launches"]["costs"]
          + mesh["visible"]["launches"]["costs"]
          + mesh["records"]["kfm_vfr"].get("costs", 0)
-         + front["stage"]["kfm_vfr"]["launches"]["costs"], checks["costs_y"]),
+         + front["stage"]["kfm_vfr"]["launches"]["costs"]
+         + trans["kfm_vfr"]["launches"]["costs"], checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
          + main["yadif"]["launches"]["logo_eval"]
@@ -2315,7 +2482,8 @@ def main() -> int:
          + sum(mesh["stage"][m]["launches"]["logo_eval"]
                for m in ("kfm_vfr", "yadif"))
          + mesh["steps"]["launches"]["logo_eval"]
-         + front["cm"]["launches"]["logo_eval"],
+         + front["cm"]["launches"]["logo_eval"]
+         + sum(r["launches"]["logo_eval"] for r in trans.values()),
          checks["logo_eval_u8_f11"]),
     ]
     kernels = []

@@ -48,9 +48,18 @@ FRONT_END = [
     "video.mpeg2_ref", "video.native", "video.avdec", "pipeline.decoders",
     "pipeline.frame_source", "ts.qp_extract", "utils.synth_ts",
 ]
+# The encode/mux side and the entry points (copies of the JAX package's
+# host layers, and the port's own pipeline/transcode.py and cli.py).
+ENCODE_SIDE = [
+    "io.process", "io.y4m", "io.wave", "io.audio_encoder", "io.muxer",
+    "pipeline.encoder_options", "captions.formatters", "captions.nicojk",
+    "captions.nicojk18", "tools", "tools.x264_shim", "tools.aac_shim",
+    "models.vfr", "pipeline.cm_stage", "pipeline.filter_stage",
+    "pipeline.transcode", "pipeline.simple", "cli",
+]
 
 
-@pytest.mark.parametrize("module", FRONT_END)
+@pytest.mark.parametrize("module", FRONT_END + ENCODE_SIDE)
 def test_front_end_module_imports_alone(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('amatsukaze_tpu_torch.{module}')\n"
