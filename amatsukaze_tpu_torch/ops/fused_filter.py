@@ -111,18 +111,23 @@ class EraseBox:
 
 
 _fn = None
+# pipelines on several threads (the server's jobs) may make the first call
+# at once: one of them binds, and _fn is set only once the signature is
+_bind_lock = threading.Lock()
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        lib = cuda_lib.load("yadif_fieldmatch")
-        fn = lib.amt_yadif_fieldmatch
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, i, i, i, p, p, i, i, i, p, p, p, i, i, i, i,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        with _bind_lock:
+            if _fn is None:
+                lib = cuda_lib.load("yadif_fieldmatch")
+                fn = lib.amt_yadif_fieldmatch
+                p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+                fn.argtypes = [p, ll, ll, i, i, i, p, p, i, i, i, p, p, p, i,
+                               i, i, i, ctypes.c_float, i, p]
+                fn.restype = ctypes.c_int
+                _fn = fn
     return _fn
 
 

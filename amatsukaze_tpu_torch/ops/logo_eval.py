@@ -41,6 +41,9 @@ _fn = None
 _tickets: dict[tuple, torch.Tensor] = {}
 # guards _tickets and the launch count: callers may launch from threads
 _lock = threading.Lock()
+# the first calls of several threads bind once, and _fn is set only once
+# the signature is
+_bind_lock = threading.Lock()
 
 
 def bind(lib: ctypes.CDLL):
@@ -56,7 +59,9 @@ def bind(lib: ctypes.CDLL):
 def _kernel():
     global _fn
     if _fn is None:
-        _fn = bind(cuda_lib.load("logo_eval"))
+        with _bind_lock:
+            if _fn is None:
+                _fn = bind(cuda_lib.load("logo_eval"))
     return _fn
 
 
@@ -91,7 +96,17 @@ def _ticket_counters(batch: int, device: torch.device,
                      stream: int) -> torch.Tensor:
     """One int32 counter per frame, zero between launches (the kernel sets
     them back). Kept per device and stream: launches on one stream run one
-    after the other."""
+    after the other.
+
+    Several threads share a stream's counters (the server's concurrent
+    jobs and its logo scan all launch on the device's default stream), and
+    that holds only because their launches run in that stream's order: a
+    launch sees the counters its predecessor set back to zero. Two
+    launches that ran at once on one counter tensor would corrupt it, so
+    the key holds the stream. A larger batch replaces the tensor while
+    launches queued before may still read the old one: the caching
+    allocator reuses the old memory only for work queued on the same
+    stream after them."""
     key = (device.index, stream)
     with _lock:
         t = _tickets.get(key)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import sys
+import threading
 from collections import deque
 
 import numpy as np
@@ -24,6 +25,10 @@ from ..ts.native import load_native
 from .mpeg2_ref import DecodedFrame
 
 _sigs_done = False
+# The binders set argtypes on the library's shared function objects, and
+# the server's pipelines open decoders from several threads at once: one
+# binder at a time, each flag set only once all of its signatures are.
+_bind_lock = threading.Lock()
 
 
 class _PlanePool:
@@ -83,29 +88,32 @@ def _bind(lib) -> None:
     global _sigs_done
     if _sigs_done:
         return
-    lib.M2V_Create.restype = ctypes.c_void_p
-    lib.M2V_Destroy.argtypes = [ctypes.c_void_p]
-    lib.M2V_DecodePicture.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                      ctypes.c_longlong]
-    lib.M2V_DecodePicture.restype = ctypes.c_int
-    lib.M2V_Flush.argtypes = [ctypes.c_void_p]
-    lib.M2V_Flush.restype = ctypes.c_int
-    lib.M2V_NextInfo.argtypes = [ctypes.c_void_p,
-                                 ctypes.POINTER(ctypes.c_int)]
-    lib.M2V_NextInfo.restype = ctypes.c_int
-    lib.M2V_PopFrame.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_void_p]
-    lib.M2V_PopFrame.restype = ctypes.c_int
-    lib.M2V_Errors.argtypes = [ctypes.c_void_p]
-    lib.M2V_Errors.restype = ctypes.c_longlong
-    if hasattr(lib, "M2V_BorrowFrame"):
-        lib.M2V_BorrowFrame.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
-        lib.M2V_BorrowFrame.restype = ctypes.c_int
-        lib.M2V_ReleaseBorrow.argtypes = [ctypes.c_void_p,
+    with _bind_lock:
+        if _sigs_done:
+            return
+        lib.M2V_Create.restype = ctypes.c_void_p
+        lib.M2V_Destroy.argtypes = [ctypes.c_void_p]
+        lib.M2V_DecodePicture.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                           ctypes.c_longlong]
-    _sigs_done = True
+        lib.M2V_DecodePicture.restype = ctypes.c_int
+        lib.M2V_Flush.argtypes = [ctypes.c_void_p]
+        lib.M2V_Flush.restype = ctypes.c_int
+        lib.M2V_NextInfo.argtypes = [ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_int)]
+        lib.M2V_NextInfo.restype = ctypes.c_int
+        lib.M2V_PopFrame.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+        lib.M2V_PopFrame.restype = ctypes.c_int
+        lib.M2V_Errors.argtypes = [ctypes.c_void_p]
+        lib.M2V_Errors.restype = ctypes.c_longlong
+        if hasattr(lib, "M2V_BorrowFrame"):
+            lib.M2V_BorrowFrame.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
+            lib.M2V_BorrowFrame.restype = ctypes.c_int
+            lib.M2V_ReleaseBorrow.argtypes = [ctypes.c_void_p,
+                                              ctypes.c_longlong]
+        _sigs_done = True
 
 
 def native_available() -> bool:
@@ -250,22 +258,25 @@ def _bind_h264(lib) -> None:
     global _h264_sigs_done
     if _h264_sigs_done:
         return
-    lib.H264_Create.restype = ctypes.c_void_p
-    lib.H264_Destroy.argtypes = [ctypes.c_void_p]
-    lib.H264_Decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                ctypes.c_longlong]
-    lib.H264_Decode.restype = ctypes.c_int
-    lib.H264_Flush.argtypes = [ctypes.c_void_p]
-    lib.H264_Flush.restype = ctypes.c_int
-    lib.H264_NextInfo.argtypes = [ctypes.c_void_p,
-                                  ctypes.POINTER(ctypes.c_int)]
-    lib.H264_NextInfo.restype = ctypes.c_int
-    lib.H264_PopFrame.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_void_p]
-    lib.H264_PopFrame.restype = ctypes.c_int
-    lib.H264_Errors.argtypes = [ctypes.c_void_p]
-    lib.H264_Errors.restype = ctypes.c_longlong
-    _h264_sigs_done = True
+    with _bind_lock:
+        if _h264_sigs_done:
+            return
+        lib.H264_Create.restype = ctypes.c_void_p
+        lib.H264_Destroy.argtypes = [ctypes.c_void_p]
+        lib.H264_Decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                    ctypes.c_longlong]
+        lib.H264_Decode.restype = ctypes.c_int
+        lib.H264_Flush.argtypes = [ctypes.c_void_p]
+        lib.H264_Flush.restype = ctypes.c_int
+        lib.H264_NextInfo.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+        lib.H264_NextInfo.restype = ctypes.c_int
+        lib.H264_PopFrame.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_void_p]
+        lib.H264_PopFrame.restype = ctypes.c_int
+        lib.H264_Errors.argtypes = [ctypes.c_void_p]
+        lib.H264_Errors.restype = ctypes.c_longlong
+        _h264_sigs_done = True
 
 
 def _annexb_segments(es: bytes, target: int = 1 << 20):
@@ -364,22 +375,25 @@ def _bind_h265(lib) -> None:
     global _h265_sigs_done
     if _h265_sigs_done:
         return
-    lib.H265_Create.restype = ctypes.c_void_p
-    lib.H265_Destroy.argtypes = [ctypes.c_void_p]
-    lib.H265_Decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                ctypes.c_longlong]
-    lib.H265_Decode.restype = ctypes.c_int
-    lib.H265_Flush.argtypes = [ctypes.c_void_p]
-    lib.H265_Flush.restype = ctypes.c_int
-    lib.H265_NextInfo.argtypes = [ctypes.c_void_p,
-                                  ctypes.POINTER(ctypes.c_int)]
-    lib.H265_NextInfo.restype = ctypes.c_int
-    lib.H265_PopFrame.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_void_p]
-    lib.H265_PopFrame.restype = ctypes.c_int
-    lib.H265_Errors.argtypes = [ctypes.c_void_p]
-    lib.H265_Errors.restype = ctypes.c_longlong
-    _h265_sigs_done = True
+    with _bind_lock:
+        if _h265_sigs_done:
+            return
+        lib.H265_Create.restype = ctypes.c_void_p
+        lib.H265_Destroy.argtypes = [ctypes.c_void_p]
+        lib.H265_Decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                    ctypes.c_longlong]
+        lib.H265_Decode.restype = ctypes.c_int
+        lib.H265_Flush.argtypes = [ctypes.c_void_p]
+        lib.H265_Flush.restype = ctypes.c_int
+        lib.H265_NextInfo.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+        lib.H265_NextInfo.restype = ctypes.c_int
+        lib.H265_PopFrame.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_void_p]
+        lib.H265_PopFrame.restype = ctypes.c_int
+        lib.H265_Errors.argtypes = [ctypes.c_void_p]
+        lib.H265_Errors.restype = ctypes.c_longlong
+        _h265_sigs_done = True
 
 
 def h265_native_available() -> bool:

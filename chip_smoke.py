@@ -113,7 +113,22 @@ result line):
    just before each and read just after. Every output frame's digest
    equals the ts phase's stage run of the same mode, the trims and the
    chosen logo equal its CM pass's; K3 runs in each CM pass, K2 in
-   kfm_vfr, K1 in yadif; the mux route is logged.
+   kfm_vfr, K1 in yadif; the mux route is logged;
+13. "server": the port's EncodeServer (server/, parallel/scheduler.py) on
+   the card with num_parallel 2, the fake encoder and the two logos as
+   .lgd files of the TS's service in its logo directory: the same TS
+   queued twice, in kfm_vfr by tools/add_task.py's main over TCP and in
+   yadif + deblock by the AddQueue RPC, and a ScanLogo RPC over the first
+   SCAN_FRAMES frames of the 1440x1080 logo scan clip (the server's
+   logo_frame_source hook) while both run, the counts set to 0 just
+   before the first job is queued and read once all three are done. Both
+   jobs complete with no retry, their output digests and trims equal the
+   transcode phase's runs of the mode, the jobs launch K2 3, K1 12 and K3
+   12 (the two CLI runs' sum), and the scan is done with an .lgd
+   byte-equal to a direct LogoAnalyzer run on the card after the server
+   stopped, whose K3 launches are the rest of the count; the jobs' wall
+   seconds beside the two CLI runs', each job's phase enter times and
+   decoder are logged.
 
 Output: the card's name and power limit (nvidia-smi), build and phase
 times, every check and timing above, one `kernels` JSON line, and as the
@@ -2256,6 +2271,26 @@ TRANSCODE_RUNS = (  # name, CLI arguments, the ts_stage run it equals
 )
 
 
+def output_digests(report: dict) -> tuple:
+    """The digests of every frame of a transcode's outputs (the bare y4m
+    streams that the fake encoder wrote) and the first one's y4m header."""
+    import os
+
+    from amatsukaze_tpu_torch.io.y4m import Y4MReader
+    from amatsukaze_tpu_torch.utils.golden import frame_digest
+
+    digests, header = [], b""
+    for out in report["outfiles"]:
+        if not os.path.exists(out["path"]):  # --mode cm writes none
+            continue
+        with open(out["path"], "rb") as f:
+            header = f.readline()
+            f.seek(0)
+            r = Y4MReader(f)
+            digests += [frame_digest(p) for p in r.frames()]
+    return digests, header
+
+
 def transcode_run(dev, work: str, name: str, args: list, src: str,
                   lgds: list):
     """`python -m amatsukaze_tpu_torch.cli --mode ts ...` in this process
@@ -2266,8 +2301,6 @@ def transcode_run(dev, work: str, name: str, args: list, src: str,
     import os
 
     from amatsukaze_tpu_torch import cli
-    from amatsukaze_tpu_torch.io.y4m import Y4MReader
-    from amatsukaze_tpu_torch.utils.golden import frame_digest
 
     run_dir = f"{work}/{name.replace(' + ', '_')}"
     os.makedirs(run_dir)
@@ -2290,15 +2323,7 @@ def transcode_run(dev, work: str, name: str, args: list, src: str,
         raise AssertionError(f"transcode {name}: the CLI returned {rc}")
     with open(f"{run_dir}/report.json") as f:
         report = json.load(f)
-    digests, header = [], b""
-    for out in report["outfiles"]:
-        if not os.path.exists(out["path"]):  # --mode cm writes none
-            continue
-        with open(out["path"], "rb") as f:
-            header = f.readline()
-            f.seek(0)
-            r = Y4MReader(f)
-            digests += [frame_digest(p) for p in r.frames()]
+    digests, header = output_digests(report)
     (trim,) = glob.glob(f"{run_dir}/amt*/trim0.avs")
     with open(trim) as f:
         trims = f.read()
@@ -2367,8 +2392,275 @@ def transcode_phase(dev, work: str, front: dict) -> dict:
             f"= {n / secs:.2f} frames/s ({what}); trims and logo the CM "
             f"pass's; launches {counts}")
         out[name] = dict(seconds=secs, fps=n / secs, launches=counts,
-                         out_frames=len(digests))
+                         out_frames=len(digests), digests=digests,
+                         trims=trims)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: "server": the encode server (server/, parallel/scheduler.py) runs
+# two queued recordings and a logo scan on the card at once
+# ---------------------------------------------------------------------------
+
+SERVER_JOBS = (  # profile, its settings, the transcode phase's run it equals
+    ("kfm", dict(filter_mode="kfm_vfr"), "kfm_vfr"),
+    ("yadif", dict(filter_setting=dict(
+        enable_deinterlace=True, deinterlace_algorithm="Yadif",
+        yadif_fps="CFR30", enable_deblock=True)), "yadif + deblock"),
+)
+# frames of the 1440x1080 logo scan clip that the ScanLogo RPC reads through
+# the server's logo_frame_source hook (the modes phase scans all 1280): the
+# 96 frames of the TS hold too few with a flat border around the logo
+SCAN_FRAMES = 384
+SCAN_SERVICE_ID = 5  # not the TS's: the scanned .lgd joins no queued job
+SERVER_TIMEOUT = 300  # seconds for both jobs and the scan
+
+
+class _ServerWatch:
+    """What each transcode of the server did, read by wrapping methods of
+    the pipeline, the phase scheduler and the decoder factory (observation
+    only): when it asked for each phase and when it entered it (seconds
+    from when the server phase began), the CM pass's result and the
+    decoder.
+    Keyed by the pipeline, whose methods run on several threads."""
+
+    def __init__(self):
+        import threading
+
+        self.jobs = {}  # id(pipeline) or id(its PhaseScheduler) -> record
+        self.lock = threading.Lock()
+        self.t0 = time.perf_counter()
+
+    @contextmanager
+    def patched(self):
+        from amatsukaze_tpu_torch.parallel import scheduler
+        from amatsukaze_tpu_torch.pipeline import decoders, transcode
+
+        pipe_cls = transcode.TranscodePipeline
+        run0, analyze0 = pipe_cls.run, pipe_cls._analyze_video_file
+        wait0, factory0 = (scheduler.PhaseScheduler.wait,
+                           decoders.auto_decoder_factory)
+        watch = self
+
+        def run(pipe):
+            conf = pipe.settings.conf
+            rec = dict(mode=conf.filter_mode, post=conf.post_filter,
+                       phases=[], cms=[], decoders=[])
+            with watch.lock:
+                watch.jobs[id(pipe)] = watch.jobs[id(pipe.phase)] = rec
+            return run0(pipe)
+
+        def wait(sched, phase):
+            asked = time.perf_counter() - watch.t0
+            out = wait0(sched, phase)
+            watch.jobs[id(sched)]["phases"].append(
+                (phase, asked, time.perf_counter() - watch.t0))
+            return out
+
+        def analyze(pipe, reform, v):
+            cma = analyze0(pipe, reform, v)
+            watch.jobs[id(pipe)]["cms"].append(cma)
+            return cma
+
+        def factory(pipe, v):
+            frames = factory0(pipe, v)
+            watch.jobs[id(pipe)]["decoders"].append(
+                getattr(frames, "__qualname__", type(frames).__name__))
+            return frames
+
+        with mock.patch.object(pipe_cls, "run", run), \
+                mock.patch.object(pipe_cls, "_analyze_video_file", analyze), \
+                mock.patch.object(scheduler.PhaseScheduler, "wait", wait), \
+                mock.patch.object(decoders, "auto_decoder_factory", factory):
+            yield
+
+
+
+def _scan_source(n_frames: int):
+    """The logo scan clip's first n_frames, its format and its region."""
+    import itertools
+
+    from amatsukaze_tpu_torch.utils import synth_clip
+
+    open_frames, _, fmt, region, _ = synth_clip.logo_scan_clip("broadcast")
+    return (lambda: itertools.islice(open_frames(), n_frames)), fmt, region
+
+
+async def _drive_server(dev, work: str, ts, scan: tuple) -> dict:
+    """Start the server, give it its profiles, the two jobs (AddTask over
+    TCP, then the AddQueue RPC) and the ScanLogo RPC, and wait for all
+    three; the counts are set to 0 just before the first job is queued and
+    read once all three are done."""
+    import asyncio
+
+    from amatsukaze_tpu_torch.server.rpc import RpcClient
+    from amatsukaze_tpu_torch.server.server import EncodeServer
+    from amatsukaze_tpu_torch.tools import add_task
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    open_scan, sfmt, region = scan
+    # on the card as a user runs it; "cpu" only for a rehearsal here
+    server = EncodeServer(AMTContext(level="warn"),
+                          data_dir=f"{work}/server",
+                          device=None if dev.type == "cuda" else "cpu")
+    server.setting.num_parallel = 2
+    server.setting.work_dir = f"{work}/server/work"
+    server.logo_frame_source = lambda src: (open_scan(), sfmt.width,
+                                            sfmt.height)
+    port = await server.start(port=0)
+    loop = asyncio.get_running_loop()
+    client = await RpcClient.connect("127.0.0.1", port)
+    try:
+        for name, prof, _ in SERVER_JOBS:
+            r = await client.call("SetProfile", dict(
+                name=name, encoder_path=f"{work}/fake_x264", **prof))
+            if r != {"ok": True}:
+                raise AssertionError(f"server: SetProfile {name}: {r}")
+        outs = {name: f"{work}/server_out/{name}" for name, _, _ in
+                SERVER_JOBS}
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        # the recorder's route: AddTask's main over TCP (its own loop, on
+        # a thread), then a client's AddQueue RPC and the ScanLogo RPC
+        rc = await loop.run_in_executor(None, add_task.main, [
+            "--port", str(port), "-s", "kfm", "-o", outs["kfm"], ts.path])
+        queued = await client.call("AddQueue", {
+            "src": ts.path, "out": outs["yadif"], "profile": "yadif"})
+        scanned = await client.call("ScanLogo", {
+            "src": ts.path, "rect": list(region), "name": "scan",
+            "service_id": SCAN_SERVICE_ID})
+        if rc != 0 or "item_id" not in queued or not scanned.get("ok"):
+            raise AssertionError(f"server: AddTask {rc}, AddQueue {queued}, "
+                                 f"ScanLogo {scanned}")
+        jobs_s = scan_s = queue = state = None
+        while jobs_s is None or scan_s is None:
+            if time.perf_counter() - t0 > SERVER_TIMEOUT:
+                raise AssertionError(f"server: not done in {SERVER_TIMEOUT} "
+                                     f"s: {queue}, {state}")
+            await asyncio.sleep(0.02)
+            queue = await client.call("GetQueue")
+            state = await client.call("GetState")
+            if jobs_s is None and len(queue) == 2 and all(
+                    e["state"] not in ("queue", "encoding") for e in queue):
+                jobs_s = time.perf_counter() - t0
+            if scan_s is None and state["logo_scan"]["state"] in ("done",
+                                                                  "failed"):
+                scan_s = time.perf_counter() - t0
+        sync(dev)
+        counts = read_counts()
+        logs = await client.call("GetLogs")
+    finally:
+        client.close()
+        await server.stop()
+    return dict(queue=queue, state=state, logs=logs, counts=counts,
+                jobs_seconds=jobs_s, scan_seconds=scan_s,
+                scan_out=scanned["out"])
+
+
+def server_phase(dev, work: str, front: dict, trans: dict, smi: str,
+                 scan_frames: int = SCAN_FRAMES) -> dict:
+    """The port's EncodeServer on the card, as a user deploys it: num_parallel
+    2, the fake encoder, the ts phase's two logos as .lgd files under the
+    TS's service id in its logo directory, the ts phase's TS queued twice
+    (kfm_vfr by AddTask, yadif + deblock by the AddQueue RPC) and a ScanLogo
+    RPC while both run. Both jobs complete with no retry, every output
+    frame's digest and the trims equal the transcode phase's run of the
+    mode, the jobs launch what the two CLI runs did (K2 3, K1 12, K3 12)
+    and the scan the K3 launches of a direct LogoAnalyzer run on the card
+    over the same frames after the server stopped, whose .lgd is
+    byte-equal to the scan's."""
+    import asyncio
+    import dataclasses
+    import os
+
+    from amatsukaze_tpu_torch.models.cm_analyze import format_trim_avs
+    from amatsukaze_tpu_torch.models.lgd import save_lgd
+    from amatsukaze_tpu_torch.models.logo import LogoAnalyzer, ScanRegion
+    from amatsukaze_tpu_torch.ts.info import TsInfo
+    from amatsukaze_tpu_torch.utils.context import AMTContext
+
+    ts, cm = front["ts"], front["cm_result"]
+    info = TsInfo(AMTContext(level="warn"))
+    info.read_file(ts.path)
+    sid = info.programs[0].service_id
+    os.makedirs(f"{work}/server/logo")
+    for k, lg in enumerate(front["logos"]):
+        save_lgd(f"{work}/server/logo/logo{k}.lgd", dataclasses.replace(
+            lg, header=dataclasses.replace(lg.header, service_id=sid)))
+    open_scan, sfmt, region = scan = _scan_source(scan_frames)
+    watch = _ServerWatch()
+    with native_mpeg2_only(), watch.patched():
+        res = asyncio.run(_drive_server(dev, work, ts, scan))
+    counts = res["counts"]
+    jobs = {r["mode"]: r for r in watch.jobs.values()}
+    want_trims = format_trim_avs(cm.result.trims) + "\n"
+    out = {}
+    for entry in res["queue"]:
+        name = entry["profile_name"]
+        _, _, cli_run = next(j for j in SERVER_JOBS if j[0] == name)
+        rec = jobs[cli_run.split(" + ")[0]]  # the pipeline's filter mode
+        if entry["state"] != "complete" or entry["retry_count"] != 0:
+            raise AssertionError(f"server {name}: {entry['state']} after "
+                                 f"{entry['retry_count']} retries: "
+                                 f"{entry['console'][-5:]}")
+        digests, _ = output_digests(entry["last_report"])
+        want = trans[cli_run]["digests"]
+        (cma,) = rec["cms"]
+        trims = format_trim_avs(cma.result.trims) + "\n"
+        if (digests != want or trims != trans[cli_run]["trims"]
+                or trims != want_trims or cma.best_logo != cm.best_logo):
+            bad = [k for k, (a, b) in enumerate(zip(digests, want)) if a != b]
+            raise AssertionError(
+                f"server {name}: {len(digests)} frames against the CLI "
+                f"run's {len(want)}, differing {bad[:5]}; trims {trims!r}, "
+                f"logo {cma.best_logo} against {cm.best_logo}")
+        timeline = ", ".join(f"{p} {a:.3f}->{t:.3f}"
+                             for p, a, t in rec["phases"])
+        log(f"server {name} ({rec['mode']}"
+            f"{' + ' + rec['post'] if rec['post'] else ''}): complete, no "
+            f"retry; {len(digests)} frames, every digest and the trims equal "
+            f"to the CLI's {cli_run} run; decoder {rec['decoders']}; phases "
+            f"asked for -> entered at (s) {timeline}")
+        out[name] = dict(phases=rec["phases"], decoders=rec["decoders"],
+                         out_frames=len(digests))
+    scan = res["state"]["logo_scan"]
+    if scan["state"] != "done":
+        raise AssertionError(f"server: logo scan {scan}")
+    an = LogoAnalyzer(AMTContext(level="warn"), ScanRegion(*region), thy=12,
+                      device=dev)
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    an.scan(open_scan(), sfmt.width, sfmt.height, name="scan",
+            service_id=SCAN_SERVICE_ID)
+    an.save(f"{work}/direct.lgd")
+    sync(dev)
+    direct_s = time.perf_counter() - t0
+    direct = read_counts()
+    with open(res["scan_out"], "rb") as f, open(f"{work}/direct.lgd",
+                                                 "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("server: the scan's .lgd differs from the "
+                                 "direct LogoAnalyzer run's")
+    k3_scan = direct["logo_eval"]
+    want_counts = {"costs": 3, "yadif": 12, "logo_eval": 12 + k3_scan}
+    if ({k: v for k, v in counts.items() if v} != want_counts
+            or {k: v for k, v in direct.items() if v} != {"logo_eval":
+                                                          k3_scan}):
+        raise AssertionError(f"server: launches {counts} (direct scan "
+                             f"{direct}), want {want_counts}")
+    cli_s = trans["kfm_vfr"]["seconds"] + trans["yadif + deblock"]["seconds"]
+    log(f"server: both jobs in {res['jobs_seconds']:.3f} s of wall time "
+        f"(the two CLI runs one after the other: {cli_s:.3f} s), with the "
+        f"logo scan beside them ({scan_frames} frames "
+        f"{sfmt.width}x{sfmt.height}, {len(an.frames_y)} kept, done at "
+        f"{res['scan_seconds']:.3f} s; the direct run alone "
+        f"{direct_s:.3f} s, its .lgd byte-equal); launches {counts} = the "
+        f"two CLI runs' K2 3, K1 12, K3 12 + the scan's K3 {k3_scan}; {smi}")
+    return dict(jobs=out, launches=counts, direct_launches=direct,
+                jobs_seconds=res["jobs_seconds"], cli_seconds=cli_s,
+                scan_seconds=res["scan_seconds"], direct_seconds=direct_s)
 
 
 def main() -> int:
@@ -2446,6 +2738,10 @@ def main() -> int:
         trans = transcode_phase(dev, work, front)
         log(f"phase transcode: {time.perf_counter() - t0:.2f} s")
 
+        t0 = time.perf_counter()
+        server = server_phase(dev, work, front, trans, smi)
+        log(f"phase server: {time.perf_counter() - t0:.2f} s")
+
     kern = "amatsukaze_tpu_torch/ops/csrc/"
     rows = [
         ("yadif_fieldmatch[yadif]", "yadif_fieldmatch.cu",
@@ -2454,6 +2750,7 @@ def main() -> int:
          + mesh["stage"]["yadif"]["launches"]["yadif"]
          + front["stage"]["yadif"]["launches"]["yadif"]
          + trans["yadif + deblock"]["launches"]["yadif"]
+         + server["launches"]["yadif"]
          + sum(c.get("yadif", 0) for c in mesh["records"].values()),
          checks["yadif_y"]),
         ("yadif_fieldmatch[yadif_bottom]", "yadif_fieldmatch.cu",
@@ -2472,7 +2769,8 @@ def main() -> int:
          + mesh["visible"]["launches"]["costs"]
          + mesh["records"]["kfm_vfr"].get("costs", 0)
          + front["stage"]["kfm_vfr"]["launches"]["costs"]
-         + trans["kfm_vfr"]["launches"]["costs"], checks["costs_y"]),
+         + trans["kfm_vfr"]["launches"]["costs"]
+         + server["launches"]["costs"], checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
          + main["yadif"]["launches"]["logo_eval"]
@@ -2483,7 +2781,9 @@ def main() -> int:
                for m in ("kfm_vfr", "yadif"))
          + mesh["steps"]["launches"]["logo_eval"]
          + front["cm"]["launches"]["logo_eval"]
-         + sum(r["launches"]["logo_eval"] for r in trans.values()),
+         + sum(r["launches"]["logo_eval"] for r in trans.values())
+         + server["launches"]["logo_eval"]
+         + server["direct_launches"]["logo_eval"],
          checks["logo_eval_u8_f11"]),
     ]
     kernels = []

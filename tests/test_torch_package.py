@@ -57,9 +57,18 @@ ENCODE_SIDE = [
     "models.vfr", "pipeline.cm_stage", "pipeline.filter_stage",
     "pipeline.transcode", "pipeline.simple", "cli",
 ]
+# The encode server and the rest of the side tools (copies of the JAX
+# package's; server/__main__.py starts its host only when run).
+SERVER = [
+    "parallel.scheduler", "server", "server.__main__", "server.cli",
+    "server.drcs", "server.filter_setting", "server.genre", "server.rename",
+    "server.rpc", "server.server", "server.web", "tools.add_task",
+    "tools.file_cutter", "tools.hash_check", "tools.script_command",
+    "tools.user_script",
+]
 
 
-@pytest.mark.parametrize("module", FRONT_END + ENCODE_SIDE)
+@pytest.mark.parametrize("module", FRONT_END + ENCODE_SIDE + SERVER)
 def test_front_end_module_imports_alone(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('amatsukaze_tpu_torch.{module}')\n"
