@@ -11,7 +11,12 @@ The reference decodes intermediates with its own FFmpeg integration
 - NullDecoder: synthesises grey frames with the reform-derived format (lets
   the full pipeline run end-to-end in environments without a decoder)
 
-The port's copy of amatsukaze_tpu/pipeline/decoders.py.
+The port's copy of amatsukaze_tpu/pipeline/decoders.py, with one repair:
+decode_h264_ps_file and annexb_ps_seek_opener crop the in-build H.264
+decoders' frames to the SPS's frame cropping rectangle. Neither the native
+engine nor the pure-Python oracle crops (both return whole macroblocks:
+1088 lines for a 1080-line broadcast), so in the JAX package a cropped
+H.264 source stops in the filter stage on frames taller than its format.
 """
 
 from __future__ import annotations
@@ -20,15 +25,6 @@ import shutil
 import subprocess
 
 import numpy as np
-
-
-# The pure-Python H.264/H.265 oracles (video/h264_ref.py, h265_ref.py) are
-# not in the port yet: where the native engines did not build, the in-build
-# decoders of those codecs are missing rather than replaced by another.
-_ORACLE_MISSING = (
-    "the native {codec} engine is unavailable and the pure-Python {codec} "
-    "decoder is not ported yet (ROADMAP.md Queue 1: the pure-Python "
-    "H.264/H.265 decoders)")
 
 
 def default_decoder_factory():
@@ -130,8 +126,7 @@ def h264ref_decoder_factory(pipeline, video_index: int):
 
 def _open_h264_inbuild(es_head: bytes = b""):
     """Native engine when available (progressive, interlaced MBAFF AND
-    PAFF field pictures); RuntimeError otherwise (no pure-Python oracle
-    in the port yet)."""
+    PAFF field pictures), else the pure-Python oracle."""
     del es_head  # sniffing no longer needed: the C++ engine covers PAFF
     try:
         from ..video.native import NativeH264Decoder, h264_native_available
@@ -140,13 +135,55 @@ def _open_h264_inbuild(es_head: bytes = b""):
             return NativeH264Decoder()
     except Exception:
         pass
-    raise RuntimeError(_ORACLE_MISSING.format(codec="H.264"))
+    from ..video.h264_ref import H264RefDecoder
+
+    return H264RefDecoder()
 
 
 def decode_h264_ps_file(path: str, is_ps: bool = True):
     """Stream (Y, U, V) frames from a PS/Annex-B file through the
-    in-build H.264 decoder, feeding whole NALs per block."""
-    return _decode_annexb_ps_file(path, _open_h264_inbuild, is_ps)
+    in-build H.264 decoder, feeding whole NALs per block, cropped to the
+    frame cropping rectangle of the file's first SPS."""
+    crop = []
+
+    def open_decoder(es_head: bytes):
+        crop.append(h264_crop(es_head))
+        return _open_h264_inbuild(es_head)
+
+    for planes in _decode_annexb_ps_file(path, open_decoder, is_ps):
+        yield crop_planes(planes, crop[0]) if crop[0] else planes
+
+
+def h264_crop(es: bytes):
+    """(top, bottom, left, right) luma samples that the first SPS in an
+    Annex B head crops (7.4.2.1.1: CropUnitX/Y from the chroma format and
+    frame_mbs_only_flag), or None when it crops nothing or has no SPS."""
+    from ..video.h264_ref import ebsp_to_rbsp, parse_sps, split_annexb
+
+    for nal in split_annexb(es):
+        if nal and nal[0] & 0x1F == 7:
+            sps = parse_sps(ebsp_to_rbsp(nal[1:]))
+            if not any(sps.crop):
+                return None
+            sub_w, sub_h = {1: (2, 2), 2: (2, 1)}.get(sps.chroma_format_idc,
+                                                      (1, 1))
+            uy = sub_h * (2 - sps.frame_mbs_only)
+            left, right, top, bottom = sps.crop
+            return top * uy, bottom * uy, left * sub_w, right * sub_w
+    return None
+
+
+def crop_planes(planes, crop):
+    """Views of (Y, U, V) without `crop`'s (top, bottom, left, right) luma
+    samples; the chroma planes lose as many at their own scale."""
+    top, bottom, left, right = crop
+    y = planes[0]
+    out = [y[top:y.shape[0] - bottom, left:y.shape[1] - right]]
+    for c in planes[1:]:
+        sy, sx = y.shape[0] // c.shape[0], y.shape[1] // c.shape[1]
+        out.append(c[top // sy:c.shape[0] - bottom // sy,
+                     left // sx:c.shape[1] - right // sx])
+    return tuple(out)
 
 
 def h265ref_decoder_factory(pipeline, video_index: int):
@@ -160,8 +197,8 @@ def h265ref_decoder_factory(pipeline, video_index: int):
 
 def _open_h265_inbuild(es_head: bytes = b""):
     """Native engine (native/h265dec.cpp) when the library is built,
-    bit-exact vs libavcodec; RuntimeError otherwise (no pure-Python
-    oracle in the port yet)."""
+    else the pure-Python oracle — both bit-exact vs libavcodec
+    (tests/test_h265_decode.py, test_h265_native.py)."""
     del es_head
     try:
         from ..video.native import NativeH265Decoder, h265_native_available
@@ -170,7 +207,9 @@ def _open_h265_inbuild(es_head: bytes = b""):
             return NativeH265Decoder()
     except Exception:
         pass
-    raise RuntimeError(_ORACLE_MISSING.format(codec="H.265"))
+    from ..video.h265_ref import H265RefDecoder
+
+    return H265RefDecoder()
 
 
 def decode_h265_ps_file(path: str, is_ps: bool = True):
@@ -306,9 +345,18 @@ def annexb_ps_seek_opener(path: str, fmt, is_ps: bool = True):
             pos = i + 3
         return False
 
+    def open_decoder(es_head: bytes):
+        """The decoder and the H.264 SPS crop (see decode_h264_ps_file)."""
+        if is_hevc:
+            return _open_h265_inbuild(es_head), None
+        return _open_h264_inbuild(es_head), h264_crop(es_head)
+
+    def out(fr, crop):
+        return crop_planes(fr[:3], crop) if crop else (fr[0], fr[1], fr[2])
+
     def opener(key_index: int, file_offset: int):
         del key_index  # outputs start at the keyframe by construction
-        dec = None
+        dec = crop = None
         ps_pend = b""
         pend = b""
         checked = False
@@ -331,22 +379,20 @@ def annexb_ps_seek_opener(path: str, fmt, is_ps: bool = True):
                         raise FormatSeekError("not a clean join point")
                     checked = True
                 if dec is None and checked:
-                    dec = (_open_h265_inbuild(pend) if is_hevc
-                           else _open_h264_inbuild(pend))
+                    dec, crop = open_decoder(pend)
                 cut = pend.rfind(b"\x00\x00\x01")
                 if dec is not None and cut > 0:
                     for fr in dec.decode(pend[:cut]):
-                        yield fr[0], fr[1], fr[2]
+                        yield out(fr, crop)
                     pend = pend[cut:]
         if is_ps and ps_pend:
             pend += extract_ps_video_es(ps_pend)
         if not checked and not _first_vcl_ok(pend):
             raise FormatSeekError("not a clean join point")
         if dec is None:
-            dec = (_open_h265_inbuild(pend) if is_hevc
-                   else _open_h264_inbuild(pend))
+            dec, crop = open_decoder(pend)
         for fr in dec.decode(pend) + dec.flush():
-            yield fr[0], fr[1], fr[2]
+            yield out(fr, crop)
 
     return opener
 

@@ -18,9 +18,9 @@ result line):
    with min and max, once on one buffer (warm: whatever fits stays in L2)
    and once rotating over buffers that together exceed the 50 MB L2 (cold:
    what a caller sees that has just uploaded the batch);
-3. the main path: a synthetic 1440x1080i clip (3:2 telecined film, then
-   interlaced video, a rendered 96x256 logo) through
-   pipeline.filter_stage.run_filter_stage in kfm_vfr mode, batch 32,
+3. the main path: a synthetic 1440x1080i clip of 200 frames (160 of 3:2
+   telecined film, then 40 of interlaced video, a rendered 96x256 logo)
+   through pipeline.filter_stage.run_filter_stage in kfm_vfr mode, batch 32,
    Y/U/V, with every kernel launch counter set to 0 just before and read
    just after; the same stage with the plain versions patched in must give
    the same logo, fade curve, cycle decisions, VFR plan and frames. Then
@@ -114,7 +114,25 @@ result line):
    equals the ts phase's stage run of the same mode, the trims and the
    chosen logo equal its CM pass's; K3 runs in each CM pass, K2 in
    kfm_vfr, K1 in yadif; the mux route is logged;
-13. "server": the port's EncodeServer (server/, parallel/scheduler.py) on
+13. "h264/h265": utils/synth_ts.py writes the ts phase's reconstruction
+   again as an H.264 TS and as an HEVC TS (lossless PCM pictures: every
+   macroblock I_PCM, every CU 16x16 IPCM; the same AAC frames, PTS, PCR
+   and PIDs). Each is split on the native TS engine (MB/s; the reform's
+   video format equal to the MPEG-2 TS's but for the codec), decoded on
+   the native engine (decode_h264_ps_file, which crops the 1088 coded
+   lines to the SPS's 1080, and decode_h265_ps_file; frames/s), every
+   frame's digest the reconstruction's; the port's pure-Python decoder
+   (what _open_h264_inbuild / _open_h265_inbuild return with the native
+   engine reported unavailable) decodes the first ORACLE_FRAMES pictures
+   at 1440x1080 to the native engine's frames (seconds per picture); then
+   cli.main in kfm_vfr with the two logos, the fake encoder and
+   `--h264decoder native`, the counts set to 0 just before and read just
+   after: every output digest, the trims and the logo equal the transcode
+   phase's kfm_vfr run over the MPEG-2 TS, K3 launched by its CM pass and
+   K2 by its analysis. In this phase and in phases 11, 12 and 14 the
+   pure-Python MPEG-2, H.264 and HEVC decoders raise if a decode that the
+   native engines should do reaches them;
+14. "server": the port's EncodeServer (server/, parallel/scheduler.py) on
    the card with num_parallel 2, the fake encoder and the two logos as
    .lgd files of the TS's service in its logo directory: the same TS
    queued twice, in kfm_vfr by tools/add_task.py's main over TCP and in
@@ -154,7 +172,7 @@ H, W = 1080, 1440
 LOGO_H, LOGO_W = 96, 256
 LOGO_X, LOGO_Y = 1120, 40  # top right, where broadcasters put the logo
 BATCH = 32
-N_FILM, N_VIDEO = 240, 60
+N_FILM, N_VIDEO = 160, 40  # 200 frames: 6.7 s of video
 
 
 def log(msg: str) -> None:
@@ -780,8 +798,8 @@ def main_path(dev, clip, fmt, logos) -> dict:
     return out
 
 
-# the main clip's last four batches (frames 172-299): 68 frames of film and
-# the 60 of interlaced video, with the logo on
+# the main clip's last four batches (frames 72-199): 88 frames of film and
+# the 40 of interlaced video, with the logo on
 PROFILE_FRAMES = 128
 
 
@@ -1990,19 +2008,25 @@ def start_native_build():
 
 
 class _NoOracle:
-    """Stands in for the pure-Python MPEG-2 decoder while the phase decodes:
-    the native engine must do it, with no hidden fallback."""
+    """Stands in for a pure-Python decoder while a phase decodes: the native
+    engine must do it, with no hidden fallback."""
 
     def __init__(self, *a, **kw):
-        raise AssertionError("decode fell back to the pure-Python MPEG-2 "
-                             "decoder: the native engine did not run")
+        raise AssertionError("decode fell back to a pure-Python decoder: "
+                             "the native engine did not run")
 
 
 @contextmanager
-def native_mpeg2_only():
+def native_decoders_only():
+    """The pure-Python MPEG-2, H.264 and HEVC decoders raise if anything
+    reaches them (pipeline/decoders.py falls back to them where a native
+    engine is unavailable)."""
     import amatsukaze_tpu_torch.video as video
+    from amatsukaze_tpu_torch.video import h264_ref, h265_ref
 
-    with mock.patch.object(video, "Mpeg2RefDecoder", _NoOracle):
+    with mock.patch.object(video, "Mpeg2RefDecoder", _NoOracle), \
+            mock.patch.object(h264_ref, "H264RefDecoder", _NoOracle), \
+            mock.patch.object(h265_ref, "H265RefDecoder", _NoOracle):
         yield
 
 
@@ -2069,7 +2093,7 @@ def ts_decode(ps: str, ts) -> dict:
 
     NativeMpeg2Decoder()  # raises where the engine did not build
     t0 = time.perf_counter()
-    with native_mpeg2_only():
+    with native_decoders_only():
         frames = list(decode_mpeg2_ps_file(ps))
     secs = time.perf_counter() - t0
     got = [frame_digest(f) for f in frames]
@@ -2131,7 +2155,7 @@ def ts_cm(dev, ps: str, ts, fmt, logos, pcm) -> dict:
     reset_counts()
     sync(dev)
     t0 = time.perf_counter()
-    with native_mpeg2_only():
+    with native_decoders_only():
         cm = run_cm_analysis(AMTContext(level="warn"),
                              lambda: decode_mpeg2_ps_file(ps), n, fmt, logos,
                              pcm_s16=pcm, batch=BATCH, device=dev)
@@ -2193,7 +2217,7 @@ def ts_stage(dev, ps: str, ts, fmt, logos, cm, ref_cm) -> dict:
             reset_counts()
             sync(dev)
             t0 = time.perf_counter()
-            with native_mpeg2_only():
+            with native_decoders_only():
                 res = run_filter_stage(
                     AMTContext(level="warn"),
                     (lambda: decode_mpeg2_ps_file(ps)) if label == "ts"
@@ -2244,7 +2268,8 @@ def ts_phase(dev, native_build, work: str, name: str = "broadcast") -> dict:
     out["cm_result"] = cm["result"]
     out["stage"] = ts_stage(dev, split["ps"], ts, fmt, logos,
                             cm["result"], cm["host_result"])
-    out.update(ts=ts, logos=logos)
+    out.update(ts=ts, logos=logos, clip=name,
+               video_format=split["reform"].formats[0].video_format)
     return out
 
 
@@ -2302,7 +2327,7 @@ def transcode_run(dev, work: str, name: str, args: list, src: str,
 
     from amatsukaze_tpu_torch import cli
 
-    run_dir = f"{work}/{name.replace(' + ', '_')}"
+    run_dir = f"{work}/{name.replace(' + ', '_').replace(' ', '_')}"
     os.makedirs(run_dir)
     argv = ["-i", src, "-o", f"{run_dir}/out", "-w", run_dir, "-e",
             f"{work}/fake_x264", "-j", f"{run_dir}/report.json",
@@ -2312,7 +2337,7 @@ def transcode_run(dev, work: str, name: str, args: list, src: str,
     reset_counts()
     sync(dev)
     t0 = time.perf_counter()
-    with native_mpeg2_only():
+    with native_decoders_only():
         # on the card as a user runs it; "cpu" only for a rehearsal here
         rc = cli.main(argv + args,
                       device=None if dev.type == "cuda" else "cpu")
@@ -2398,7 +2423,163 @@ def transcode_phase(dev, work: str, front: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: "server": the encode server (server/, parallel/scheduler.py) runs
+# phase 13: "h264/h265": the ts phase's frames as H.264 and HEVC broadcast
+# streams, split, decoded on the native engines and by the pure-Python
+# oracles, and through the CLI
+# ---------------------------------------------------------------------------
+
+ORACLE_FRAMES = 2  # pictures the pure-Python decoders decode at 1440x1080
+H26X_CODECS = (  # synth_ts name, decoders.py entry, access unit delimiter
+    ("h264", "decode_h264_ps_file", b"\x00\x00\x00\x01\x09"),
+    ("h265", "decode_h265_ps_file", b"\x00\x00\x00\x01\x46\x01"),
+)
+
+
+def first_access_units(ps: str, n: int, aud: bytes) -> bytes:
+    """The elementary stream of the first n access units of an
+    intermediate PS (each starts with an access unit delimiter)."""
+    from amatsukaze_tpu_torch.ts.qp_extract import extract_ps_video_es
+
+    with open(ps, "rb") as f:
+        es = extract_ps_video_es(f.read((n + 1) * 3_000_000))
+    at = -1
+    for _ in range(n + 1):
+        at = es.find(aud, at + 1)
+        if at < 0:
+            raise AssertionError(f"fewer than {n + 1} access units in the "
+                                 f"first bytes of {ps}")
+    return es[:at]
+
+
+def h26x_oracle(codec: str, ps: str, aud: bytes, native_frames: list,
+                recon: list) -> dict:
+    """The port's pure-Python decoder over the first ORACLE_FRAMES pictures
+    of the intermediate at full width: its frames (cropped by the SPS for
+    H.264, as decode_h264_ps_file crops) equal the native engine's and the
+    writer's. _open_h26x_inbuild with the native engine reported
+    unavailable returns that decoder."""
+    from amatsukaze_tpu_torch.pipeline import decoders
+    from amatsukaze_tpu_torch.utils.golden import frame_digest
+    from amatsukaze_tpu_torch.video import h264_ref, h265_ref
+    from amatsukaze_tpu_torch.video import native as native_mod
+
+    es = first_access_units(ps, ORACLE_FRAMES, aud)
+    oracle = h264_ref.H264RefDecoder if codec == "h264" \
+        else h265_ref.H265RefDecoder
+    with mock.patch.object(native_mod, f"{codec}_native_available",
+                           lambda: False):
+        dec = getattr(decoders, f"_open_{codec}_inbuild")(es)
+    if type(dec) is not oracle:
+        raise AssertionError(f"{codec}: without the native engine the "
+                             f"in-build decoder is {type(dec).__name__}")
+    t0 = time.perf_counter()
+    frames = dec.decode(es) + dec.flush()
+    secs = time.perf_counter() - t0
+    crop = decoders.h264_crop(es) if codec == "h264" else None
+    got = [frame_digest(decoders.crop_planes(f[:3], crop) if crop else f[:3])
+           for f in frames]
+    want = [frame_digest(f) for f in native_frames[:ORACLE_FRAMES]]
+    if (len(got) != ORACLE_FRAMES or got != want
+            or want != [frame_digest(f) for f in recon[:ORACLE_FRAMES]]):
+        raise AssertionError(f"{codec} oracle: {len(got)} frames, digests "
+                             f"{got} against the native engine's {want}")
+    log(f"{codec} oracle: the port's {oracle.__name__} (what "
+        f"_open_{codec}_inbuild returns without the native engine) decoded "
+        f"the first {ORACLE_FRAMES} pictures at {recon[0][0].shape[1]}x"
+        f"{recon[0][0].shape[0]} in {secs:.3f} s = "
+        f"{secs / ORACLE_FRAMES:.3f} s per picture; frames equal to the "
+        f"native engine's and the writer's")
+    return dict(seconds_per_picture=secs / ORACLE_FRAMES)
+
+
+def h26x_codec(dev, work: str, front: dict, trans: dict, codec: str,
+               entry: str, aud: bytes) -> dict:
+    """One codec: write, split, native decode, oracle, CLI in kfm_vfr."""
+    import dataclasses
+    import os
+
+    from amatsukaze_tpu_torch.pipeline import decoders
+    from amatsukaze_tpu_torch.utils import synth_ts
+    from amatsukaze_tpu_torch.utils.golden import frame_digest
+
+    ts = front["ts"]
+    sub = f"{work}/{codec}"
+    os.makedirs(sub)
+    out = synth_ts.write_ts(f"{sub}/src.ts", iter(ts.recon), ts.num_frames,
+                            synth_ts.silent_around_cuts,
+                            synth_ts.TS_CLIPS[front["clip"]]["seed"], codec)
+    if out.audio_frames != ts.audio_frames or out.pts != ts.pts:
+        raise AssertionError(f"{codec} writer: audio or PTS differ from the "
+                             f"MPEG-2 TS's")
+    log(f"{codec} writer: {out.num_frames} PCM pictures + "
+        f"{len(out.audio_frames)} ADTS frames (the MPEG-2 TS's), "
+        f"{out.size / 1e6:.2f} MB in {out.seconds:.2f} s")
+    split = ts_split(sub, out)
+    fmt = split["reform"].formats[0].video_format
+    if (dataclasses.replace(fmt, format=front["video_format"].format)
+            != front["video_format"]):
+        raise AssertionError(f"{codec} split: {fmt} against the MPEG-2 TS's "
+                             f"{front['video_format']}")
+    t0 = time.perf_counter()
+    with native_decoders_only():
+        frames = list(getattr(decoders, entry)(split["ps"]))
+    secs = time.perf_counter() - t0
+    got = [frame_digest(f) for f in frames]
+    want = [frame_digest(f) for f in ts.recon]
+    bad = [k for k, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{codec} decode: {len(got)} frames against "
+                             f"{len(want)}, differing {bad[:5]}")
+    log(f"{codec} decode: {len(frames)} frames in {secs:.3f} s = "
+        f"{len(frames) / secs:.1f} frames/s on the native engine ({entry}; "
+        f"lossless PCM pictures, not long-GOP decode); every frame digest "
+        f"equals the MPEG-2 TS's reconstruction")
+    oracle = h26x_oracle(codec, split["ps"], aud, frames, ts.recon)
+    del frames
+    lgds = [f"{work}/logo{k}.lgd" for k in range(len(front["logos"]))]
+    report, digests, _, trims, counts, cli_s = transcode_run(
+        dev, work, f"{codec} kfm_vfr", ["--filter-mode", "kfm_vfr",
+                                         "--h264decoder", "native"],
+        out.path, lgds)
+    want_run = trans["kfm_vfr"]
+    n_batches = -(-ts.num_frames // BATCH)
+    if (digests != want_run["digests"] or trims != want_run["trims"]
+            or report["logofiles"]
+            != [lgds[front["cm_result"].best_logo]]):
+        bad = [k for k, (a, b) in enumerate(zip(digests,
+                                                want_run["digests"]))
+               if a != b]
+        raise AssertionError(
+            f"{codec} CLI: {len(digests)} frames against the MPEG-2 run's "
+            f"{len(want_run['digests'])}, differing {bad[:5]}; trims "
+            f"{trims!r}, logo {report['logofiles']}")
+    if (counts.get("costs", 0) <= 0
+            or counts.get("logo_eval") != len(lgds) * n_batches):
+        raise AssertionError(f"{codec} CLI: launches {counts}")
+    log(f"{codec} CLI kfm_vfr: {ts.num_frames} frames in {cli_s:.3f} s = "
+        f"{ts.num_frames / cli_s:.2f} frames/s (--h264decoder native: "
+        f"split, native decode, CM pass, filter, y4m to the fake encoder); "
+        f"every digest, the trims and the logo equal to the MPEG-2 TS's "
+        f"kfm_vfr run; launches {counts}")
+    return dict(writer_seconds=out.seconds, mb=out.size / 1e6,
+                split_mb_per_s=split["mb_per_s"], decode_fps=len(got) / secs,
+                oracle=oracle, cli_seconds=cli_s,
+                cli_fps=ts.num_frames / cli_s, launches=counts)
+
+
+def h26x_phase(dev, work: str, front: dict, trans: dict) -> dict:
+    """The ts phase's reconstruction as an H.264 and an HEVC TS (lossless
+    PCM pictures, the same audio, timestamps and PIDs): each split on the
+    native TS engine to the MPEG-2 TS's format, decoded on the native
+    engine to the reconstruction, its first pictures by the pure-Python
+    oracle to the same, and through cli.main in kfm_vfr to the transcode
+    phase's kfm_vfr run digest for digest, K2 and K3 launched."""
+    return {codec: h26x_codec(dev, work, front, trans, codec, entry, aud)
+            for codec, entry, aud in H26X_CODECS}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: "server": the encode server (server/, parallel/scheduler.py) runs
 # two queued recordings and a logo scan on the card at once
 # ---------------------------------------------------------------------------
 
@@ -2590,7 +2771,7 @@ def server_phase(dev, work: str, front: dict, trans: dict, smi: str,
             lg, header=dataclasses.replace(lg.header, service_id=sid)))
     open_scan, sfmt, region = scan = _scan_source(scan_frames)
     watch = _ServerWatch()
-    with native_mpeg2_only(), watch.patched():
+    with native_decoders_only(), watch.patched():
         res = asyncio.run(_drive_server(dev, work, ts, scan))
     counts = res["counts"]
     jobs = {r["mode"]: r for r in watch.jobs.values()}
@@ -2739,6 +2920,10 @@ def main() -> int:
         log(f"phase transcode: {time.perf_counter() - t0:.2f} s")
 
         t0 = time.perf_counter()
+        h26x = h26x_phase(dev, work, front, trans)
+        log(f"phase h264/h265: {time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
         server = server_phase(dev, work, front, trans, smi)
         log(f"phase server: {time.perf_counter() - t0:.2f} s")
 
@@ -2770,6 +2955,7 @@ def main() -> int:
          + mesh["records"]["kfm_vfr"].get("costs", 0)
          + front["stage"]["kfm_vfr"]["launches"]["costs"]
          + trans["kfm_vfr"]["launches"]["costs"]
+         + sum(h["launches"]["costs"] for h in h26x.values())
          + server["launches"]["costs"], checks["costs_y"]),
         ("logo_eval", "logo_eval.cu", "amatsukaze_tpu/ops/logo_pallas.py:107",
          main["kfm_vfr"]["launches"]["logo_eval"]
@@ -2782,6 +2968,7 @@ def main() -> int:
          + mesh["steps"]["launches"]["logo_eval"]
          + front["cm"]["launches"]["logo_eval"]
          + sum(r["launches"]["logo_eval"] for r in trans.values())
+         + sum(h["launches"]["logo_eval"] for h in h26x.values())
          + server["launches"]["logo_eval"]
          + server["direct_launches"]["logo_eval"],
          checks["logo_eval_u8_f11"]),

@@ -331,19 +331,40 @@ def test_sweep_frame_cache_equals_jax(front, budget):
 
 
 @pytest.mark.parametrize("codec", ["H.264", "H.265"])
-def test_missing_pure_python_decoders_raise(codec, monkeypatch):
-    """Without the native engine the in-build H.264/H.265 decoders are
-    missing in the port (the pure-Python oracles are not ported yet): a
-    RuntimeError that names the ROADMAP item, not another decoder."""
+def test_missing_native_engine_falls_back_to_the_oracle(codec, monkeypatch):
+    """Without the native engine the in-build H.264/H.265 decoders are the
+    port's pure-Python oracles, as the JAX package's are its own; each
+    decodes a small crafted stream (tests/paff_gen.py's B fields,
+    tests/h265_craft.py's PCM pictures with tiles) to the JAX fallback's
+    frames."""
+    from amatsukaze_tpu.video import native as jnative
+
     if codec == "H.264":
-        monkeypatch.setattr(tnative, "h264_native_available", lambda: False)
-        open_inbuild = tdec._open_h264_inbuild
+        import paff_gen
+
+        from amatsukaze_tpu_torch.video.h264_ref import H264RefDecoder
+
+        name, oracle = "h264_native_available", H264RefDecoder
+        opens = (tdec._open_h264_inbuild, jdec._open_h264_inbuild)
+        es = paff_gen.crafted_b_field_stream(0)
     else:
-        monkeypatch.setattr(tnative, "h265_native_available", lambda: False)
-        open_inbuild = tdec._open_h265_inbuild
-    with pytest.raises(RuntimeError, match="ROADMAP.md Queue 1") as err:
-        open_inbuild(b"")
-    assert codec in str(err.value)
+        import h265_craft
+
+        from amatsukaze_tpu_torch.video.h265_ref import H265RefDecoder
+
+        name, oracle = "h265_native_available", H265RefDecoder
+        opens = (tdec._open_h265_inbuild, jdec._open_h265_inbuild)
+        es = h265_craft.pcm_stream(96, 64, 2, tiles=(2, 2))[0]
+    monkeypatch.setattr(tnative, name, lambda: False)
+    monkeypatch.setattr(jnative, name, lambda: False)
+    mine, theirs = (open_inbuild(es) for open_inbuild in opens)
+    assert type(mine) is oracle
+    assert type(theirs).__name__ == oracle.__name__
+    got = mine.decode(es) + mine.flush()
+    want = theirs.decode(es) + theirs.flush()
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert _planes_equal(a[:3], b[:3])
 
 
 def test_auto_decoder_factory_routes_mpeg2_to_the_inbuild_decoder(front):

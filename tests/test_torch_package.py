@@ -66,9 +66,16 @@ SERVER = [
     "tools.file_cutter", "tools.hash_check", "tools.script_command",
     "tools.user_script",
 ]
+# The pure-Python H.264/H.265 decoders (copies of the JAX package's oracles,
+# the in-build decoders' fallback where the native engines did not build).
+DECODERS = [
+    "video.h264_tables", "video.h264_cabac", "video.h264_ref",
+    "video.h264_paff", "video.h264_mbaff", "video.h265_tables",
+    "video.h265_ref",
+]
 
 
-@pytest.mark.parametrize("module", FRONT_END + ENCODE_SIDE + SERVER)
+@pytest.mark.parametrize("module", FRONT_END + ENCODE_SIDE + SERVER + DECODERS)
 def test_front_end_module_imports_alone(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('amatsukaze_tpu_torch.{module}')\n"
