@@ -267,9 +267,13 @@ def main(argv=None, device=None) -> int:
         build_parser().print_help()
         return 1
     ctx = AMTContext(level="info", time_prefix=args.print_prefix)
+    # the recording's trace: its root span, and the pipeline's set-up
+    trace = ctx.trace
+    trace.open_root()
     device = ensure_cuda_backend(ctx, device)
     if args.drcs:
         ctx.load_drcs_mapping(args.drcs)
+    init = trace.begin("pipeline.init")
     conf = args_to_config(args)
     settings = Settings(ctx, conf)
     try:
@@ -280,6 +284,7 @@ def main(argv=None, device=None) -> int:
             pipe = TranscodePipeline(
                 ctx, settings, decoder_factory=default_decoder_factory(),
                 device=device)
+            trace.end(init)
             pipe.run()
         elif args.mode == "g":
             from .pipeline.simple import SimpleTranscode

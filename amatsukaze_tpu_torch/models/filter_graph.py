@@ -51,7 +51,7 @@ from ..ops.resize import resize_lanczos3
 from ..parallel.ordered import ordered_parallel
 from ..types import VideoFormat
 from ..utils.batching import batched
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device, to_host
 from .kfm import CycleMode, KFMDecider, VFRPlan, build_vfr_plan, plan_is_cfr
 from .vfr import EncoderZone, infer_vfr_timing_fps
 
@@ -67,8 +67,9 @@ class DeferredBatch:
     def __len__(self) -> int:
         return self.n
 
-    def materialize(self) -> np.ndarray:
-        out = self.dev[: self.n].cpu().numpy()
+    def materialize(self, trace=None) -> np.ndarray:
+        """The batch on the host; `trace` counts the fetch's bytes."""
+        out = to_host(self.dev[: self.n], trace)
         # 10-bit samples travel as int16 (torch has no uint16 arithmetic)
         return out.view(np.uint16) if out.dtype == np.int16 else out
 
@@ -241,7 +242,7 @@ class FilterGraph:
         costs = list(self._section_costs(frame_iter, halo=False))
         if not costs:
             return
-        merged = torch.cat(costs).cpu().numpy()
+        merged = to_host(torch.cat(costs), self.ctx.trace)
         self._finish_analysis(merged[:num_frames], num_frames)
 
     def _section_costs(self, frame_iter, halo: bool):
@@ -259,7 +260,7 @@ class FilterGraph:
                     else np.concatenate([carry[None], host]))
                 carry = host[-1]
             else:
-                arr = torch.from_numpy(host).to(self.device)
+                arr = to_device(host, self.device, self.ctx.trace)
                 arr_in = arr if carry is None else torch.cat([carry[None],
                                                               arr])
                 _, c = fused_filter.yadif_fieldmatch(
@@ -335,7 +336,7 @@ class FilterGraph:
             sections_log.extend(bounds)
         if not chunks:
             return
-        merged = torch.cat(chunks).cpu().numpy()[:num_frames]
+        merged = to_host(torch.cat(chunks), self.ctx.trace)[:num_frames]
         self._finish_analysis(merged, num_frames)
         if log_prefix and self.decisions is not None:
             self._write_its_def(f"{log_prefix}.autovfr.def")
@@ -410,7 +411,8 @@ class FilterGraph:
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         # frames cross to the device at source dtype and widen there
-        return torch.from_numpy(self._host_frames(frames)).to(self.device)
+        return to_device(self._host_frames(frames), self.device,
+                         self.ctx.trace)
 
     def _apply_post(self, out: torch.Tensor, src_indices,
                     plane_h: int) -> torch.Tensor:
@@ -423,7 +425,7 @@ class FilterGraph:
                 mbh = qp.shape[1]
                 scale = 2 if plane_h > mbh * 12 else 1  # luma vs 4:2:0 chroma
                 return self.post_chain(
-                    out, qp=torch.from_numpy(qp).to(out.device),
+                    out, qp=to_device(qp, out.device, self.ctx.trace),
                     qp_block_scale=scale, src_bits=self.src_bits)
         return self.post_chain(out, src_bits=self.src_bits)
 
@@ -509,7 +511,8 @@ class FilterGraph:
         op_arr = np.asarray([op for _, op in entries])
         out = variants[VFRPlan.WEAVE][src_idx]
         for op in ops_used - {VFRPlan.WEAVE}:
-            m = torch.from_numpy(op_arr == op).to(self.device)[:, None, None]
+            m = to_device(op_arr == op, self.device,
+                          self.ctx.trace)[:, None, None]
             out = torch.where(m, variants[op][src_idx], out)
         srcs = [src for src, _ in entries]
         if svp:

@@ -20,7 +20,6 @@ package. Its slow-link host twins (ops/logo_host.py) are not carried.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,7 +29,7 @@ from ..ops import logo as ops
 from ..ops import logo_eval
 from ..ops.logo_ref import LogoEvalRef, med_average
 from ..utils.batching import batched, pad_tail
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device, to_host
 from .lgd import LogoData, LogoHeader, save_lgd
 
 THRESH = 0.2  # |score| below this = indeterminate (ref LogoScan.hpp:1536)
@@ -213,9 +212,6 @@ class LogoAnalyzer:
         self.logodata: LogoData | None = None
         # per refinement pass: each kept frame's best fade step (0..19)
         self.min_fades: list[np.ndarray] = []
-        # wall seconds of each pass ("scan", "refine", "refine_final");
-        # each ends in a fetch from the device
-        self.seconds: dict[str, float] = {}
 
     def _header(self, imgw, imgh, name="No Name", service_id=-1):
         r = self.region
@@ -229,15 +225,17 @@ class LogoAnalyzer:
 
     def scan(self, frame_iter, imgw, imgh, name="No Name",
              service_id=-1) -> LogoData:
-        """frame_iter yields (Y, U, V) full planes (uint8 numpy)."""
+        """frame_iter yields (Y, U, V) full planes (uint8 numpy). Each pass
+        is a span of ctx.trace: `logo.scan`, `logo.refine` and
+        `logo.refine_final`; each ends in a fetch from the device."""
         header = self._header(imgw, imgh, name, service_id)
-        for key, run in (("scan", lambda: self._initial_pass(frame_iter,
-                                                             header)),
-                         ("refine", lambda: self._remake(header, False)),
-                         ("refine_final", lambda: self._remake(header, True))):
-            t0 = time.perf_counter()
-            run()
-            self.seconds[key] = time.perf_counter() - t0
+        trace = self.ctx.trace
+        with trace.span("logo.scan"):
+            self._initial_pass(frame_iter, header)
+        with trace.span("logo.refine"):
+            self._remake(header, False)
+        with trace.span("logo.refine_final"):
+            self._remake(header, True)
         return self.logodata
 
     # -- pass 1 -------------------------------------------------------------
@@ -375,9 +373,9 @@ class LogoFrameMatcher:
         self.fps = int(round(fps))
         self.fade_steps = fade_steps
         self._size = (width, height)
-        self._fades = torch.from_numpy(
-            np.linspace(0.0, 1.0, fade_steps).astype(np.float32)
-        ).to(self.device)
+        self._fades = to_device(
+            np.linspace(0.0, 1.0, fade_steps).astype(np.float32),
+            self.device, self.ctx.trace)
         self._results = []
         self._pending = None
 
@@ -404,7 +402,7 @@ class LogoFrameMatcher:
             return None, None
         y0, x0, y1, x1 = region
         window = np.ascontiguousarray(batch_np[:, y0:y1, x0:x1])
-        return torch.from_numpy(window).to(self.device), (y0, x0)
+        return to_device(window, self.device, self.ctx.trace), (y0, x0)
 
     def scan_batch(self, luma: torch.Tensor | None, n_real: int,
                    origin=(0, 0)) -> None:
@@ -442,7 +440,7 @@ class LogoFrameMatcher:
                 out[:, li, :] = 0.0
                 out[:, li, -1] = -1.0
             else:
-                out[:, li] = s[:n_real].cpu().numpy()
+                out[:, li] = to_host(s[:n_real], self.ctx.trace)
         self._results.append(out)
 
     def end_scan(self) -> None:

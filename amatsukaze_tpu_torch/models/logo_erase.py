@@ -14,7 +14,7 @@ import torch
 
 from ..ops.logo_eval import delogo_full_frame, pad_logo_planes
 from ..utils.batching import pad_tail
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device, to_host
 from .filter_graph import normalize_u8
 
 
@@ -44,7 +44,7 @@ class LogoEraser:
                  h.imgx >> sx, h.imgy >> sy),
             )
             self.planes.append(tuple(
-                tuple(torch.from_numpy(p).to(self.device)
+                tuple(to_device(p, self.device, ctx.trace)
                       for p in pad_logo_planes(*g))
                 for g in geoms))
             self.fades.append(None if fades is None
@@ -58,7 +58,8 @@ class LogoEraser:
         uint8 numpy arrays; `start` is the batch's first filter-frame index
         (selects the fade slice). Returns uint8 numpy arrays."""
         b = len(ys)
-        planes = [torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
+        trace = self.ctx.trace
+        planes = [to_device(np.ascontiguousarray(p), self.device, trace)
                   .float() for p in (ys, us, vs)]
         for logo_planes, fades in zip(self.planes, self.fades):
             if fades is None:
@@ -68,11 +69,11 @@ class LogoEraser:
                                    len(fades) - 1)]
             else:
                 fd = np.zeros(b, np.float32)
-            fd = torch.from_numpy(fd).to(self.device)
+            fd = to_device(fd, self.device, trace)
             planes = [delogo_full_frame(x, a, bb, 255.0, fd)
                       for x, (a, bb) in zip(planes, logo_planes)]
         # the erase output is integer-valued: cast on device, fetch uint8
-        return tuple(p.to(torch.uint8).cpu().numpy() for p in planes)
+        return tuple(to_host(p.to(torch.uint8), trace) for p in planes)
 
     def erase_iter(self, frames_iter, batch: int = 32):
         """Wrap a (Y, U, V) frame iterator with batched erasure. Tail

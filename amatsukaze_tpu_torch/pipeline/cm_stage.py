@@ -24,11 +24,9 @@ JAX package's host code (models/cm_analyze.py, jls_script.py, chapter.py).
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from ..models.chapter import JlsElement, format_jls
 from ..models.cm_analyze import (CMAnalyzer, CMAnalyzeResult,
@@ -37,7 +35,7 @@ from ..models.filter_graph import normalize_u8
 from ..models.logo import LogoFrameMatcher
 from ..ops import cm as cm_ops
 from ..utils.batching import batched, pad_tail
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device, to_host
 
 # the reference's AMTAnalyzeLogo fade sweep, from which the erase fades come;
 # without an erase the two end points are enough to pick the logo
@@ -69,23 +67,25 @@ class CMStageResult:
     result: CMAnalyzeResult | None = None
     jls_elements: list = field(default_factory=list)
     num_frames: int = 0  # frames the pass saw
-    # wall seconds: "stream" (the luma pass, ending in its last fetch),
-    # "silence", "decision"
-    seconds: dict = field(default_factory=dict)
     logo_ratio: float = 0.0
     logo_path: str = ""  # the chosen logo's name in the CM result
+    # scan_video_file's spans of ctx.trace: `cm.pass`, `cm.silence`
+    pass_span: object = None
+    silence_span: object = None
 
 
 def luma_pass(ys, num_frames: int, batch: int, device,
               matcher: LogoFrameMatcher | None = None,
-              scene_metrics: bool = True):
+              scene_metrics: bool = True, trace=None):
     """One streaming pass over at most `num_frames` luma planes (uint8, or
     what normalize_u8 takes), in batches of `batch` (the tail padded to the
     steady shape). With scene metrics each batch crosses to the device
     whole, once; without, only the matcher's window region does. The
     matcher (begun by the caller, ended after this) scores the same device
     tensor. Returns (frames seen, diffs [N] float32, histograms [N, 32]
-    float32); the two arrays are None without scene metrics."""
+    float32); the two arrays are None without scene metrics. `trace`: the
+    recording's (utils/perf.Trace), whose open span sums the pass's waits
+    on `ys` (`input_wait_s`) and which counts the copies' bytes."""
     device = resolve_device(device)
     diffs, hists = [], []
     pending = None  # the previous batch's metrics, still on the device
@@ -97,12 +97,12 @@ def luma_pass(ys, num_frames: int, batch: int, device,
         if pending is not None:
             d, h, n_real = pending
             pending = None
-            diffs.append(d[:n_real].cpu().numpy())
-            hists.append(h[:n_real].cpu().numpy())
+            diffs.append(to_host(d[:n_real], trace))
+            hists.append(to_host(h[:n_real], trace))
 
     def frames():
         nonlocal count
-        it = iter(ys)
+        it = iter(ys if trace is None else trace.waited(ys))
         while count < num_frames:
             y = next(it, None)
             if y is None:
@@ -113,7 +113,7 @@ def luma_pass(ys, num_frames: int, batch: int, device,
     for chunk in batched(frames(), batch):
         arr, n_real = pad_tail(chunk, batch)
         if scene_metrics:
-            luma, origin = torch.from_numpy(arr).to(device), (0, 0)
+            luma, origin = to_device(arr, device, trace), (0, 0)
             d, h = cm_ops.scene_metrics_batch(
                 luma, luma[0] if carry is None else carry)
             carry = luma[n_real - 1]
@@ -133,7 +133,8 @@ def luma_pass(ys, num_frames: int, batch: int, device,
     return count, np.concatenate(diffs), np.concatenate(hists)
 
 
-def detect_silence(pcm_s16, fps: float, device) -> list[tuple[int, int]]:
+def detect_silence(pcm_s16, fps: float, device,
+                   trace=None) -> list[tuple[int, int]]:
     """Silent spans in frames of interleaved stereo 48 kHz int16 PCM
     (transcode.py:691-720): RMS of 10 ms windows on the device, the
     run-length pass on the host, window units to frames by fps / 100."""
@@ -145,8 +146,8 @@ def detect_silence(pcm_s16, fps: float, device) -> list[tuple[int, int]]:
     if usable == 0:
         return []
     rms = cm_ops.audio_rms_windows(
-        torch.from_numpy(pcm[:usable]).to(resolve_device(device)), window)
-    spans = cm_ops.detect_silence(rms.cpu().numpy(), SILENCE_THRESHOLD,
+        to_device(pcm[:usable], resolve_device(device), trace), window)
+    spans = cm_ops.detect_silence(to_host(rms, trace), SILENCE_THRESHOLD,
                                   SILENCE_MIN_WINDOWS)
     to_frames = fps / 100.0
     return [(int(s * to_frames), int(e * to_frames)) for s, e in spans]
@@ -203,11 +204,24 @@ def scan_video_file(ctx, open_frames, num_frames: int, fmt, logos: list,
     `pcm_s16`. files: FILES names -> paths; the scene-change and logo-frame
     files are written where named. logo_names: what the result calls each
     logo (the JAX pipeline names the .lgd file); by default its header
-    name."""
+    name. The pass up to the logo choice is the span `cm.pass` of
+    ctx.trace, the silence `cm.silence` (the result keeps both)."""
     files = files or {}
     scan = CMStageResult()
     fps = fmt.frame_rate if fmt.frame_rate_num else 29.97
-    t0 = time.perf_counter()
+    trace = ctx.trace
+    with trace.span("cm.pass", frames=num_frames) as scan.pass_span:
+        _scan_luma(ctx, scan, open_frames, num_frames, fmt, fps, logos,
+                   no_delogo, batch, device, files, logo_names)
+    with trace.span("cm.silence") as scan.silence_span:
+        scan.silence = detect_silence(pcm_s16, fps, device, trace)
+    return scan
+
+
+def _scan_luma(ctx, scan: CMStageResult, open_frames, num_frames: int, fmt,
+               fps: float, logos: list, no_delogo: bool, batch: int, device,
+               files: dict, logo_names) -> None:
+    """scan_video_file's luma pass, scene changes and logo choice."""
     if logos:
         scan.matcher = LogoFrameMatcher(ctx, logos, device=device)
         # the 11-step fade sweep feeds both matching and the per-frame
@@ -217,13 +231,10 @@ def scan_video_file(ctx, open_frames, num_frames: int, fmt, logos: list,
                                 else FADE_STEPS)
     scan.num_frames, diffs, hists = luma_pass(
         (planes[0] for planes in open_frames()), num_frames, batch, device,
-        scan.matcher)
+        scan.matcher, trace=ctx.trace)
     matcher = scan.matcher
     if matcher is not None:
         matcher.end_scan()
-    scan.seconds["stream"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
     if len(diffs):
         corr = cm_ops.histogram_correlation_from_hists(hists)
         scan.scene_changes = cm_ops.detect_scene_changes(diffs, corr)
@@ -240,12 +251,6 @@ def scan_video_file(ctx, open_frames, num_frames: int, fmt, logos: list,
                           else logos[best].header.name or f"logo{best}")
         if not no_delogo:
             scan.fade = matcher.fade_curve()
-    scan.seconds["decision"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    scan.silence = detect_silence(pcm_s16, fps, device)
-    scan.seconds["silence"] = time.perf_counter() - t0
-    return scan
 
 
 def decide(analyzer: CMAnalyzer, scan: CMStageResult,
@@ -288,13 +293,12 @@ def run_cm_analysis(ctx, open_frames, num_frames: int, fmt, logos: list,
     if num_frames > 0:
         cma = scan_video_file(ctx, open_frames, num_frames, fmt, logos,
                               pcm_s16, no_delogo, batch, device, files)
-    t0 = time.perf_counter()
-    decide(analyzer, cma, files)
-    if any(r > 0 for r in pmt_cut_side_rate):
-        analyzer.apply_pmt_cut(pmt_cut_side_rate, list(pid_changes or []))
-    cma.result = analyzer.result
-    cma.jls_elements = jls_elements(analyzer.result, num_frames, fps)
-    _write(files, "jls", format_jls(cma.jls_elements))
-    cma.seconds["decision"] = (cma.seconds.get("decision", 0.0)
-                               + time.perf_counter() - t0)
+    with ctx.trace.span("cm.decide"):
+        decide(analyzer, cma, files)
+        if any(r > 0 for r in pmt_cut_side_rate):
+            analyzer.apply_pmt_cut(pmt_cut_side_rate,
+                                   list(pid_changes or []))
+        cma.result = analyzer.result
+        cma.jls_elements = jls_elements(analyzer.result, num_frames, fps)
+        _write(files, "jls", format_jls(cma.jls_elements))
     return cma

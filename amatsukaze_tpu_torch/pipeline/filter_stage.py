@@ -36,6 +36,13 @@ the stage keeps the selected frames after the erase). The passes over it:
 
 So with the spill a KFM output file costs one decode and one erase.
 
+The steps are spans of ctx.trace: `filter.logo_match` (the logo pass and
+the eraser), `filter.analysis` (the graph's analysis, the spec and its
+files) and `filter.output` (each pump_output). A pass that reads the
+decoder's prefetch queue sums its waits on it into its span's attribute
+`input_wait_s`; the output pass sums its calls of the sink (the hand-over
+to the encoder's pipe) into `sink_s`.
+
 10-bit sources (uint16 planes): mode "none" without a logo to erase keeps
 the 10 bits (the Main10 case: a post chain and the resize run from and to
 10 bits and the sink gets uint16 planes; with neither, the planes pass
@@ -78,8 +85,6 @@ class FilterStageResult:
     # encoder zones of the CM zones in output frames (cm_zones_mode "both")
     zones: list = field(default_factory=list)
     spill_frames: int = 0  # frames the output pass read from the spill
-    # wall seconds of each pass over the clip; each ends in a device fetch
-    seconds: dict = field(default_factory=dict)
     shards: int = 1  # shards of the filter graph's mesh (filter_devices)
 
 
@@ -159,8 +164,9 @@ class FilterAnalysis:
     open_frames: object
     wanted: set | None  # source indices of the output file's frames
     batch: int
-    seconds: dict
     shards: int
+    num_frames: int  # the output file's source frames
+    output_span: object = None  # pump_output's `filter.output` span
 
 
 def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
@@ -171,14 +177,12 @@ def run_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
     pass."""
     st = analyze_filter_stage(ctx, open_frames, num_frames, fmt, logos,
                               mode, **kw)
-    t0 = time.perf_counter()
     frames, _ = output_frames(st)
     n_out = pump_output(st, frames, sink)
-    st.seconds["output"] = time.perf_counter() - t0
     return FilterStageResult(st.matcher, st.best_logo, st.fade, st.graph,
                              st.spec, n_out, st.zones,
                              len(st.spill.frames) if st.spill else 0,
-                             st.seconds, st.shards)
+                             st.shards)
 
 
 def analyze_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
@@ -244,88 +248,87 @@ def analyze_filter_stage(ctx, open_frames, num_frames: int, fmt, logos: list,
         raise ValueError(f"cm_zones_mode must be one of {CM_ZONES_MODES}")
     post_chain = build_post_chain(post_filter)
     wanted = None if video_frames is None else set(video_frames)
-    seconds = {}
-    t0 = time.perf_counter()
-    entries = []
-    if cm is not None:
-        matcher, best, fade = cm.matcher, cm.best_logo, cm.fade
-        if fade is not None:
-            entries.append((matcher.logos[best], fade))
-    else:
-        matcher, best, fade = None, -1, None
-        if logos:
-            matcher = LogoFrameMatcher(ctx, logos, device=device)
-            matcher.begin_scan(fmt.width, fmt.height, fmt.frame_rate,
-                               FADE_STEPS_NO_DELOGO if no_delogo
-                               else FADE_STEPS)
-            # the fades index the source: score every frame up to the
-            # last one selected
-            luma_pass((planes[0] for planes in open_frames()),
-                      num_frames if wanted is None
-                      else max(wanted, default=-1) + 1,
-                      batch, device, matcher, scene_metrics=False)
-            matcher.end_scan()
-            if matcher.num_frames:
-                best = matcher.select_logo()
-                fade = matcher.fade_curve()
-                if not no_delogo:
-                    entries.append((logos[best], fade))
-    entries.extend((lg, None) for lg in erase_logos)
-    eraser = LogoEraser(ctx, entries, fmt.width, fmt.height, device=device)
-    seconds["logo_match"] = time.perf_counter() - t0
+    trace = ctx.trace
+    with trace.span("filter.logo_match"):
+        entries = []
+        if cm is not None:
+            matcher, best, fade = cm.matcher, cm.best_logo, cm.fade
+            if fade is not None:
+                entries.append((matcher.logos[best], fade))
+        else:
+            matcher, best, fade = None, -1, None
+            if logos:
+                matcher = LogoFrameMatcher(ctx, logos, device=device)
+                matcher.begin_scan(fmt.width, fmt.height, fmt.frame_rate,
+                                   FADE_STEPS_NO_DELOGO if no_delogo
+                                   else FADE_STEPS)
+                # the fades index the source: score every frame up to the
+                # last one selected
+                luma_pass((planes[0] for planes in open_frames()),
+                          num_frames if wanted is None
+                          else max(wanted, default=-1) + 1,
+                          batch, device, matcher, scene_metrics=False,
+                          trace=trace)
+                matcher.end_scan()
+                if matcher.num_frames:
+                    best = matcher.select_logo()
+                    fade = matcher.fade_curve()
+                    if not no_delogo:
+                        entries.append((logos[best], fade))
+        entries.extend((lg, None) for lg in erase_logos)
+        eraser = LogoEraser(ctx, entries, fmt.width, fmt.height, device=device)
 
-    t0 = time.perf_counter()
-    fg = FilterGraph(ctx, mode=mode, batch=batch, device=device,
-                     post_chain=post_chain, qp_source=qp_source)
-    if resize is not None:
-        fg.resize = tuple(resize)
-    fg.kfm_ucf = kfm_ucf
-    shards = (filter_devices.size if isinstance(filter_devices, Mesh)
-              else int(filter_devices))
-    if shards > 1:
-        fg.set_mesh(filter_devices)
-    spill = None
-    if fg.mode == FilterGraph.MODE_AUTOVFR:
-        fg.analyze_autovfr(open_section
-                           or _forward_opener(open_frames, wanted),
-                           num_frames, parallel=max(1, autovfr_parallel),
-                           log_prefix=autovfr_prefix)
-    elif fg.mode in FilterGraph.KFM_FAMILY:
-        spill = FrameSpill(analysis_cache_cap(analysis_cache_bytes))
+    with trace.span("filter.analysis", frames=num_frames):
+        fg = FilterGraph(ctx, mode=mode, batch=batch, device=device,
+                         post_chain=post_chain, qp_source=qp_source)
+        if resize is not None:
+            fg.resize = tuple(resize)
+        fg.kfm_ucf = kfm_ucf
+        shards = (filter_devices.size if isinstance(filter_devices, Mesh)
+                  else int(filter_devices))
+        if shards > 1:
+            fg.set_mesh(filter_devices)
+        spill = None
+        if fg.mode == FilterGraph.MODE_AUTOVFR:
+            fg.analyze_autovfr(open_section
+                               or _forward_opener(open_frames, wanted),
+                               num_frames, parallel=max(1, autovfr_parallel),
+                               log_prefix=autovfr_prefix)
+        elif fg.mode in FilterGraph.KFM_FAMILY:
+            spill = FrameSpill(analysis_cache_cap(analysis_cache_bytes))
 
-        def tee_y():
-            for planes in _select(_erased(open_frames(), eraser, batch),
-                                  wanted):
-                spill.offer(planes)
-                yield planes[0]
+            def tee_y():
+                for planes in _select(_erased(trace.waited(open_frames()),
+                                              eraser, batch), wanted):
+                    spill.offer(planes)
+                    yield planes[0]
 
-        fg.analyze(tee_y(), num_frames)
-        if not spill.usable():
-            spill = None
-    spec = fg.output_spec(num_frames, fmt)
-    seconds["analysis"] = time.perf_counter() - t0
-    if dump_path is not None:
-        with open(dump_path, "w") as f:
-            json.dump(fg.debug_dump(num_frames), f, indent=1)
-    if timecode_path is not None and spec.time_codes:
-        with open(timecode_path, "w") as f:
-            f.write("# timecode format v2\n")
-            # one start time per output frame (the plan also carries the
-            # trailing end time)
-            f.writelines(f"{tc:.6f}\n"
-                         for tc in spec.time_codes[:spec.num_out_frames])
-    zones = []
-    if cm is not None and cm_zones_mode == "both":
-        zones = [EncoderZone(z.start_frame, z.end_frame)
-                 for z in cm.result.cmzones]
-    if fg.mode != FilterGraph.MODE_NONE:
-        zones = make_out_zones(zones, list(range(num_frames))
-                               if video_frames is None else video_frames,
-                               spec.num_out_frames, spec.time_codes,
-                               fmt.frame_rate_num, fmt.frame_rate_denom)
+            fg.analyze(tee_y(), num_frames)
+            if not spill.usable():
+                spill = None
+        spec = fg.output_spec(num_frames, fmt)
+        if dump_path is not None:
+            with open(dump_path, "w") as f:
+                json.dump(fg.debug_dump(num_frames), f, indent=1)
+        if timecode_path is not None and spec.time_codes:
+            with open(timecode_path, "w") as f:
+                f.write("# timecode format v2\n")
+                # one start time per output frame (the plan also carries the
+                # trailing end time)
+                f.writelines(f"{tc:.6f}\n"
+                             for tc in spec.time_codes[:spec.num_out_frames])
+        zones = []
+        if cm is not None and cm_zones_mode == "both":
+            zones = [EncoderZone(z.start_frame, z.end_frame)
+                     for z in cm.result.cmzones]
+        if fg.mode != FilterGraph.MODE_NONE:
+            zones = make_out_zones(zones, list(range(num_frames))
+                                   if video_frames is None else video_frames,
+                                   spec.num_out_frames, spec.time_codes,
+                                   fmt.frame_rate_num, fmt.frame_rate_denom)
     return FilterAnalysis(matcher, best, fade, fg, spec, eraser, spill,
-                          zones, open_frames, wanted, batch, seconds,
-                          max(1, shards))
+                          zones, open_frames, wanted, batch, max(1, shards),
+                          num_frames)
 
 
 def output_frames(st: FilterAnalysis):
@@ -343,7 +346,8 @@ def output_frames(st: FilterAnalysis):
         return iter(st.spill.frames), 8
     src = iter(st.open_frames())
     first = next(src, None)
-    src = itertools.chain(() if first is None else (first,), src)
+    src = fg.ctx.trace.waited(
+        itertools.chain(() if first is None else (first,), src))
     if (first is not None and first[0].dtype == np.uint16 and not eraser
             and fg.mode == FilterGraph.MODE_NONE):
         if fg.post_chain is not None or fg.resize is not None:
@@ -354,16 +358,27 @@ def output_frames(st: FilterAnalysis):
 
 def pump_output(st: FilterAnalysis, frames, sink) -> int:
     """One output pass of output_frames' frames through the graph into the
-    sink; returns the number of frames handed to the sink."""
+    sink, as the span `filter.output` (kept as st.output_span), whose
+    attribute `sink_s` sums the sink's calls; returns the number of frames
+    handed to the sink."""
     fg = st.graph
-    if (fg.mode == FilterGraph.MODE_NONE and fg.post_chain is None
-            and fg.resize is None):
-        n_out = 0
-        for planes in frames:  # nothing to filter: straight to the sink
+    clock = time.perf_counter
+    with fg.ctx.trace.span("filter.output", frames=st.num_frames) as out:
+        st.output_span = out
+
+        def timed_sink(planes):
+            t0 = clock()
             sink(planes)
-            n_out += 1
-        return n_out
-    return pump_filtered(fg, frames, sink, st.batch)
+            out.add("sink_s", clock() - t0)
+
+        if (fg.mode == FilterGraph.MODE_NONE and fg.post_chain is None
+                and fg.resize is None):
+            n_out = 0
+            for planes in frames:  # nothing to filter: straight to the sink
+                timed_sink(planes)
+                n_out += 1
+            return n_out
+        return pump_filtered(fg, frames, timed_sink, st.batch)
 
 
 def _erased(src, eraser: LogoEraser, batch: int):
@@ -416,10 +431,11 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
     start = 0
     pending = None
     emitted = 0
+    trace = fg.ctx.trace
 
     def emit(outs):
         nonlocal emitted
-        mats = [o.materialize() for o in outs]
+        mats = [o.materialize(trace) for o in outs]
         for k in range(len(mats[0])):
             sink(tuple(m[k] for m in mats))
         emitted += len(mats[0])

@@ -7,6 +7,11 @@ caption/time lists that StreamReformInfo::prepare consumes. Intermediate
 video is wrapped in MPEG2-PS (`i{n}.mpg`) by io.ps_writer, matching the
 reference's intermediate format (readable by standard demuxers).
 
+split() adds to the counters of ctx.trace: `split.ts_bytes`, and the
+seconds `split.ps_write_s` (the PS writer and the intermediate's writes),
+`split.audio_s` (the audio PES path and the wave decode, without its PS
+writes) and `split.caption_s`.
+
 The port's copy of amatsukaze_tpu/pipeline/splitter.py.
 """
 
@@ -14,6 +19,7 @@ from __future__ import annotations
 
 import io
 import os
+import time
 
 from ..reform.stream_reform import (
     FileAudioFrameInfo,
@@ -54,6 +60,9 @@ class AMTSplitter(TsSplitter):
         self._audio_file_size = 0
         self._wave_file_size = 0
         self.src_file_size = 0
+        # seconds in the PS writer (all of it, and of the audio path's)
+        self._ps_seconds = 0.0
+        self._ps_audio_seconds = 0.0
 
         self.video_frame_list: list[FileVideoFrameInfo] = []
         self.audio_frame_list: list[FileAudioFrameInfo] = []
@@ -65,6 +74,11 @@ class AMTSplitter(TsSplitter):
     def split(self) -> StreamReformInfo:
         self._read_all()
         self._close_files()
+        trace = self.ctx.trace
+        trace.add("split.ts_bytes", self.src_file_size)
+        trace.add("split.ps_write_s", self._ps_seconds)
+        trace.add("split.audio_s", self.audio_seconds - self._ps_audio_seconds)
+        trace.add("split.caption_s", self.caption_seconds)
         self._print_interlace_stats()
         return StreamReformInfo(
             self.ctx,
@@ -119,7 +133,9 @@ class AMTSplitter(TsSplitter):
                 file_offset=self._int_video_size,
             )
             self.video_frame_list.append(info)
+        t0 = time.perf_counter()
         self._ps_writer.out_video_pes_packet(clock, frames, packet)
+        self._ps_seconds += time.perf_counter() - t0
 
     def on_video_format_changed(self, fmt: VideoFormat) -> None:
         dar = fmt.get_dar()
@@ -139,8 +155,10 @@ class AMTSplitter(TsSplitter):
             )
             self.video_file_count += 1
             self._int_video_size = 0
+            t0 = time.perf_counter()
             self._ps_writer.out_header(self._video_stream_type,
                                        self._audio_stream_type)
+            self._ps_seconds += time.perf_counter() - t0
         self._cur_video_format = fmt
         self.stream_event_list.append(
             StreamEvent(StreamEventType.VIDEO_FORMAT_CHANGED,
@@ -166,7 +184,12 @@ class AMTSplitter(TsSplitter):
                 self._wave_file_size += len(frame.decoded_data)
             self.audio_frame_list.append(info)
         if self.video_file_count > 0:
-            self._ps_writer.out_audio_pes_packet(audio_idx, clock, frames, packet)
+            t0 = time.perf_counter()
+            self._ps_writer.out_audio_pes_packet(audio_idx, clock, frames,
+                                                 packet)
+            dt = time.perf_counter() - t0
+            self._ps_seconds += dt
+            self._ps_audio_seconds += dt
 
     def on_audio_format_changed(self, audio_idx, fmt) -> None:
         self.ctx.info(

@@ -34,7 +34,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,7 +49,6 @@ from ..reform.stream_reform import MPEG_CLOCK_HZ, StreamReformInfo
 from ..types import CMType, EncodeFileKey
 from ..utils.context import ErrorCounter, FormatError, NoDrcsMapError
 from ..utils.device import resolve_device
-from ..utils.perf import Stopwatch
 from . import cm_stage
 from .filter_stage import analyze_filter_stage, output_frames, pump_output
 from .frame_source import SweepFrameCache
@@ -113,7 +111,17 @@ def make_bitrate_zones(time_codes, cmzones, settings: Settings, fps_num, fps_den
 
 class TranscodePipeline:
     """One `--mode ts` transcode (ref transcodeMain). `device`: None is the
-    CUDA card, "cpu" the plain PyTorch versions (checked when run() starts)."""
+    CUDA card, "cpu" the plain PyTorch versions (checked when run() starts).
+
+    Each phase of run() is a span of ctx.trace (utils/perf.py), below the
+    recording's root span where the caller opened one: `gate` (each wait at
+    the phase scheduler), `split`, `reform.prepare`, `cm` (`cm.pass` /
+    `cm.silence` / `cm.decide` per video file), `audio`, `captions`,
+    `encode` (per encode file a `gate`, `filter.logo_match`,
+    `filter.analysis`, `encode.spawn`, `filter.output`, `encode.drain`),
+    then `mux`. The decoder's own next() calls add to the counters
+    `decode.frames` and `decode.busy_s`. The report carries the trace under
+    "trace"."""
 
     def __init__(self, ctx, settings: Settings, decoder_factory=None,
                  audio_decoder_factory=None, caption_decoder=None,
@@ -124,6 +132,13 @@ class TranscodePipeline:
         self.device = device
         self.nicojk_fetchers = nicojk_fetchers or []
         self._nico_ok = False
+        if decoder_factory is not None:
+            def timed_factory(pipeline, video_index, _orig=decoder_factory):
+                # the decoder's own time, on the thread that decodes
+                return ctx.trace.timed_iter(_orig(pipeline, video_index),
+                                            "decode")
+
+            decoder_factory = timed_factory
         self.decoder_factory = decoder_factory
         if decoder_factory is not None:
             mb = settings.conf.frame_cache_mb
@@ -182,23 +197,28 @@ class TranscodePipeline:
         self._active_spec = None
 
     # ------------------------------------------------------------------ main
+    def _gate(self, phase: str) -> None:
+        with self.ctx.trace.span("gate", phase=phase):
+            self.phase.wait(phase)
+
     def run(self) -> dict:
         ctx, st = self.ctx, self.settings
+        trace = ctx.trace
         self.device = ensure_cuda_backend(ctx, self.device)
         is_no_encode = st.conf.mode == "cm"
-        sw = Stopwatch()
-        sw.start()
 
-        self.phase.wait("TSAnalyze")
-        from .splitter import AMTSplitter
+        self._gate("TSAnalyze")
+        with trace.span("split") as split_span:
+            from .splitter import AMTSplitter
 
-        splitter = AMTSplitter(
-            ctx, st, audio_decoder_factory=self.audio_decoder_factory,
-            caption_decoder=self.caption_decoder,
-        )
-        reform = splitter.split()
+            splitter = AMTSplitter(
+                ctx, st, audio_decoder_factory=self.audio_decoder_factory,
+                caption_decoder=self.caption_decoder,
+            )
+            reform = splitter.split()
+            split_span.frames = len(splitter.video_frame_list)
         self._reform = reform  # decoders may need the format info
-        ctx.info("TS analysis done: %.2f s", sw.getandreset())
+        ctx.info("TS analysis done: %.2f s", split_span.seconds)
         service_id = splitter.get_actual_service_id()
         self.actual_service_id = service_id
         num_total = splitter.num_total_packets
@@ -221,12 +241,15 @@ class TranscodePipeline:
             if ctx.error_count(ErrorCounter.NO_DRCS_MAP) > 0:
                 raise NoDrcsMapError("unmapped DRCS characters found")
 
-        reform.prepare(st.conf.split_sub, st.conf.audio_encoder.value != "none")
+        with trace.span("reform.prepare"):
+            reform.prepare(st.conf.split_sub,
+                           st.conf.audio_encoder.value != "none")
 
         # NicoJK comment acquisition (ref :521-538)
         nicojk = None
         self._nico_ok = False
         if not is_no_encode and st.conf.nicojk_mask:
+            nico_span = trace.begin("nicojk")
             from ..captions.nicojk import NicoJK, parse_ch_sid
 
             ch_map = {}
@@ -256,45 +279,44 @@ class TranscodePipeline:
                 raise RuntimeError("NicoJK comment acquisition failed")
             elif not nicojk.failed:
                 ctx.info("no matching NicoJK channel")
+            trace.end(nico_span)
 
         # per-video-file CM/logo analysis (ref :559-595)
-        self.phase.wait("CMAnalyze")
-        sw.start()
-        num_video_files = reform.num_video_file
-        cm_results = []
-        for v in range(num_video_files):
-            cm_results.append(self._analyze_video_file(reform, v))
-        ctx.info("CM analysis done: %.2f s", sw.getandreset())
+        self._gate("CMAnalyze")
+        with trace.span("cm") as cm_span:
+            cm_results = [self._analyze_video_file(reform, v)
+                          for v in range(reform.num_video_file)]
+        ctx.info("CM analysis done: %.2f s", cm_span.seconds)
 
         for v, cma in enumerate(cm_results):
             zones = [(z.start_frame, z.end_frame) for z in cma.result.cmzones]
             reform.apply_cm_zones(v, zones, cma.result.divs)
 
-        adiff = reform.gen_audio(st.cmtypes)
+        with trace.span("audio"):
+            adiff = reform.gen_audio(st.cmtypes)
 
         keys = reform.get_out_file_keys()
         out_results = {k.key(): OutFileResult() for k in keys}
 
         # chapters (ref :627-645)
         if st.conf.chapter and not is_no_encode:
-            for v, cma in enumerate(cm_results):
-                elements = self._jls_elements(reform, v, cma)
-                maker = ChapterMaker(cma.result.trims, elements)
-                for key in keys:
-                    if key.video != v:
-                        continue
-                    file = reform.get_encode_file(key)
-                    fmt = reform.get_format(key).video_format
-                    chapters = maker.file_chapters(
-                        file.video_frames, fmt.frame_rate
-                    )
-                    if chapters:
-                        with open(st.tmp_chapter_path(key), "w") as f:
-                            f.write(
-                                ChapterMaker.format_chapters(
-                                    chapters, fmt.frame_rate_num, fmt.frame_rate_denom
-                                )
-                            )
+            with trace.span("chapters"):
+                for v, cma in enumerate(cm_results):
+                    elements = self._jls_elements(reform, v, cma)
+                    maker = ChapterMaker(cma.result.trims, elements)
+                    for key in keys:
+                        if key.video != v:
+                            continue
+                        file = reform.get_encode_file(key)
+                        fmt = reform.get_format(key).video_format
+                        chapters = maker.file_chapters(
+                            file.video_frames, fmt.frame_rate
+                        )
+                        if chapters:
+                            with open(st.tmp_chapter_path(key), "w") as f:
+                                f.write(ChapterMaker.format_chapters(
+                                    chapters, fmt.frame_rate_num,
+                                    fmt.frame_rate_denom))
 
         if is_no_encode:
             return self._report(reform, keys, out_results, cm_results,
@@ -302,6 +324,7 @@ class TranscodePipeline:
                                 nico_ok=False)
 
         # caption files per output (ref :635-660)
+        captions_span = trace.begin("captions")
         from ..captions.formatters import (
             CaptionASSFormatter,
             CaptionSRTFormatter,
@@ -331,27 +354,29 @@ class TranscodePipeline:
                     with open(st.tmp_nicojk_ass_path(key, jktype), "w",
                               encoding="utf-8") as f:
                         f.write(text)
+        trace.end(captions_span)
 
         # filter + encode per output file (ref :683-753)
-        sw.start()
-        for i, key in enumerate(keys):
-            self.phase.wait("Filter")
-            self._encode_one(reform, key, cm_results[key.video],
-                             out_results[key.key()], i, len(keys))
-        ctx.info("encode done: %.2f s", sw.getandreset())
+        with trace.span("encode") as encode_span:
+            for i, key in enumerate(keys):
+                self._gate("Filter")
+                self._encode_one(reform, key, cm_results[key.video],
+                                 out_results[key.key()], i, len(keys))
+        ctx.info("encode done: %.2f s", encode_span.seconds)
 
         # mux (ref :755-770)
-        self.phase.wait("Mux")
+        self._gate("Mux")
         total_out_size = 0
-        for key in keys:
-            res = out_results[key.key()]
-            file = reform.get_encode_file(key)
-            out_path = st.out_file_path(file.out_key, file.key_max)
-            res.path = out_path
-            self.muxer_runner(self, reform, key, res)
-            if os.path.exists(out_path):
-                res.file_size = os.path.getsize(out_path)
-            total_out_size += res.file_size
+        with trace.span("mux"):
+            for key in keys:
+                res = out_results[key.key()]
+                file = reform.get_encode_file(key)
+                out_path = st.out_file_path(file.out_key, file.key_max)
+                res.path = out_path
+                self.muxer_runner(self, reform, key, res)
+                if os.path.exists(out_path):
+                    res.file_size = os.path.getsize(out_path)
+                total_out_size += res.file_size
 
         return self._report(reform, keys, out_results, cm_results,
                             src_file_size, total_int_video_size,
@@ -419,7 +444,6 @@ class TranscodePipeline:
             # to the device once and feeds the scene metrics and the logo
             # kernel; nothing holds the whole sequence in host or device
             # memory
-            t_stream = time.time()
             cma = cm_stage.scan_video_file(
                 self.ctx, self._open_frames(v), num_frames, fmt,
                 [lg for _, lg in self.logos],
@@ -431,26 +455,29 @@ class TranscodePipeline:
                 logo_names=[p for p, _ in self.logos])
             self.ctx.info(
                 "[CM analysis] stream pass %.2fs (%d frames; decode, scene "
-                "metrics and logo %.2fs)", time.time() - t_stream,
-                cma.num_frames, cma.seconds["stream"])
+                "metrics and logo %.2fs)",
+                cma.silence_span.t1 - cma.pass_span.t0, cma.num_frames,
+                cma.pass_span.seconds)
 
-        # configured external tools take precedence over the in-process
-        # engines (ref CMAnalyze.hpp:319-365: chapterExe + joinLogoScp
-        # subprocesses with the reference file contracts)
-        if self._external_tool(st.conf.chapter_exe_path):
-            cma.scene_changes = self._run_chapter_exe(v)
-            analyzer.result.scene_changes = list(cma.scene_changes)
-        if self._external_tool(st.conf.jls_path):
-            self._run_join_logo_scp(v, analyzer, cma.scene_changes)
-        else:
-            # the decision, with the trim AVS + div files (reference file
-            # contract)
-            cm_stage.decide(analyzer, cma, files)
+        with self.ctx.trace.span("cm.decide"):
+            # configured external tools take precedence over the in-process
+            # engines (ref CMAnalyze.hpp:319-365: chapterExe + joinLogoScp
+            # subprocesses with the reference file contracts)
+            if self._external_tool(st.conf.chapter_exe_path):
+                cma.scene_changes = self._run_chapter_exe(v)
+                analyzer.result.scene_changes = list(cma.scene_changes)
+            if self._external_tool(st.conf.jls_path):
+                self._run_join_logo_scp(v, analyzer, cma.scene_changes)
+            else:
+                # the decision, with the trim AVS + div files (reference
+                # file contract)
+                cm_stage.decide(analyzer, cma, files)
 
-        pid_changes = reform.get_pid_changed_list(v)
-        if any(r > 0 for r in st.conf.pmt_cut_side_rate):
-            analyzer.apply_pmt_cut(st.conf.pmt_cut_side_rate, pid_changes)
-        cma.result = analyzer.result
+            pid_changes = reform.get_pid_changed_list(v)
+            if any(r > 0 for r in st.conf.pmt_cut_side_rate):
+                analyzer.apply_pmt_cut(st.conf.pmt_cut_side_rate,
+                                       pid_changes)
+            cma.result = analyzer.result
         return cma
 
     @staticmethod
@@ -657,7 +684,7 @@ class TranscodePipeline:
 
         ctx.info("[encode start] %d/%d %s (%d frames)",
                  index + 1, total, key.cm.name, num_frames)
-        self.phase.wait("Encode")
+        self._gate("Encode")
 
         # filter analysis + output spec (ref AMTFilterSource,
         # FilteredSource.hpp:136-635 — the AVS multi-pass loop becomes a
@@ -671,7 +698,8 @@ class TranscodePipeline:
                      st.conf.filter_devices)
         qp_source = None
         if getattr(build_post_chain(st.conf.post_filter), "wants_qp", False):
-            qp_source = self._qp_source(key, file)
+            with ctx.trace.span("filter.qp_maps"):
+                qp_source = self._qp_source(key, file)
         mb = st.conf.analysis_cache_mb
         stage = analyze_filter_stage(
             ctx, self._open_frames(key.video), num_frames, fmt, [], mode,
@@ -747,6 +775,8 @@ class TranscodePipeline:
     def _report(self, reform, keys, out_results, cm_results, src_file_size,
                 int_video_size, total_out_size, adiff, nico_ok) -> dict:
         st = self.settings
+        # the recording's root span ends with its report
+        self.ctx.trace.close_root()
         in_dur, out_dur = reform.get_in_out_duration()
         report = {
             "srcpath": st.conf.src_file_path,
@@ -766,6 +796,7 @@ class TranscodePipeline:
             # (ref Encoder.hpp:238-239 log line)
             "encodewaits": [self.encode_stats.get(k.key(), {})
                             for k in keys],
+            "trace": self.ctx.trace.to_json(),
         }
         for key in keys:
             file = reform.get_encode_file(key)
@@ -867,6 +898,8 @@ def _default_encoder_runner(pipeline: TranscodePipeline, reform,
     per encoder pass; with the analysis frame spill both passes read the
     retained frames.
     """
+    trace = pipeline.ctx.trace
+    spawn = trace.begin("encode.spawn")
     from ..io.process import DataPumpThread, SubProcess
     from ..io.y4m import Y4MFormat, Y4MWriter
     from ..utils.perf import FpsPrinter
@@ -931,21 +964,22 @@ def _default_encoder_runner(pipeline: TranscodePipeline, reform,
     fpsp = FpsPrinter(interval_s=10.0, report=lambda fps: pipeline.ctx.info(
         "[encode] %d/%d frames, %.1f fps", done[0], spec.num_out_frames, fps))
     fpsp.start()
+    trace.end(spawn)
 
     def sink(planes):
         pump.put(planes)
         done[0] += 1
         fpsp.update()
 
-    t_start = time.time()
     try:
         pump_output(stage, frames, sink)
-        pump.join()
+        with trace.span("encode.drain") as drain:
+            pump.join()
+            rc = writer.join() if proc is None else proc.join()
     except BaseException:
         if proc is not None:
             proc.kill()
         raise
-    rc = writer.join() if proc is None else proc.join()
     if rc != 0:
         raise RuntimeError(
             f"encoder failed ({rc}): "
@@ -954,8 +988,9 @@ def _default_encoder_runner(pipeline: TranscodePipeline, reform,
     # encode-stage wait breakdown (ref Encoder.hpp:238-239 logs Total /
     # FilterWait / EncoderWait): consumer_wait = the encoder feed idling
     # for filtered frames, producer_wait = the filter blocked on a slow
-    # encoder. Stored per encode file for the JSON report.
-    total = time.time() - t_start
+    # encoder. Stored per encode file for the JSON report. Total runs from
+    # the output pass's start to the encoder's exit.
+    total = drain.t1 - stage.output_span.t0
     stats = {"total": round(total, 3),
              "filter_wait": round(pump.consumer_wait, 3),
              "encoder_wait": round(pump.producer_wait, 3)}

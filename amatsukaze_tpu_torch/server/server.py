@@ -1120,6 +1120,10 @@ class EncodeServer:
             item_ctx = AMTContext(
                 level="debug" if self.ctx.level == "debug" else "info",
                 time_prefix=True, out=_EntryConsole(self, entry))
+            # the job's trace: its root span, and the pipeline's set-up
+            trace = item_ctx.trace
+            trace.open_root()
+            init = trace.begin("pipeline.init")
             item_ctx.drcs_map.update(self.ctx.drcs_map)
             settings = Settings(item_ctx, conf)
             # every job runs on self.device: the gpu_index that the
@@ -1129,6 +1133,7 @@ class EncodeServer:
                 decoder_factory=default_decoder_factory(),
                 phase_scheduler=phase, device=self.device,
             )
+            trace.end(init)
             report = await loop.run_in_executor(None, pipe.run)
             if report:
                 entry.out_files = [

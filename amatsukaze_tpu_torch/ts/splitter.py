@@ -17,6 +17,7 @@ The port's copy of amatsukaze_tpu/ts/splitter.py.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -200,6 +201,13 @@ class AudioFrameParser(PesParser):
             self._latm = None
 
     def on_pes_packet(self, clock: int, packet: PESPacket) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._on_pes_packet(clock, packet)
+        finally:
+            self.splitter.audio_seconds += time.perf_counter() - t0
+
+    def _on_pes_packet(self, clock: int, packet: PESPacket) -> None:
         if clock == -1:
             self.ctx.error("audio PES packet without clock info")
             return
@@ -229,6 +237,13 @@ class CaptionPesParser(PesParser):
     def on_pes_packet(self, clock: int, packet: PESPacket) -> None:
         if self.decoder is None:
             return
+        t0 = time.perf_counter()
+        try:
+            self._decode(clock, packet)
+        finally:
+            self.splitter.caption_seconds += time.perf_counter() - t0
+
+    def _decode(self, clock: int, packet: PESPacket) -> None:
         pts = packet.pts if packet.has_pts else -1
         sys_clock = clock // 300
         # receivers must get >=0.5 s of lead; observed streams use ~0.75-0.80 s.
@@ -268,6 +283,10 @@ class TsSplitter(TsPacketSelectorHandler):
         self.selected_service_id = -1
         self.num_total_packets = 0
         self.num_scramble_packets = 0
+        # seconds in the audio PES path (ADTS parse, decode, the subclass's
+        # callback) and in the caption decode
+        self.audio_seconds = 0.0
+        self.caption_seconds = 0.0
 
         self.packet_parser = _SplitterPacketParser(ctx, self._on_live_batch)
         self._store = bytearray()  # rewind buffer (ref TsPacketBuffer)

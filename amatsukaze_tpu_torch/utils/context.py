@@ -1,4 +1,5 @@
-"""Run context: leveled logger, error counters, DRCS map, temp-file registry.
+"""Run context: leveled logger, error counters, DRCS map, temp-file
+registry and the recording's trace (utils/perf.py).
 
 Parity target: AMTContext (reference: Amatsukaze/StreamUtils.hpp:314-511) -
 error counter ids and their JSON names match the reference so reports are
@@ -14,6 +15,8 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
+
+from .perf import Trace
 
 
 class AMTError(Exception):
@@ -67,7 +70,8 @@ _LEVELS = {"debug": 0, "info": 1, "warn": 2, "error": 3}
 
 @dataclass
 class AMTContext:
-    """Logger + error counters + DRCS mapping + temp-file registry."""
+    """Logger + error counters + DRCS mapping + temp-file registry + the
+    recording's trace."""
 
     level: str = "info"
     time_prefix: bool = False
@@ -76,6 +80,7 @@ class AMTContext:
     counters: dict = field(default_factory=lambda: {e: 0 for e in ErrorCounter})
     drcs_map: dict = field(default_factory=dict)  # md5-hex -> str
     _tmp_files: set = field(default_factory=set)
+    trace: Trace = field(default_factory=Trace)
 
     # -- logging --------------------------------------------------------------
     def _log(self, lv: str, msg: str) -> None:

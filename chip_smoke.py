@@ -699,8 +699,19 @@ def plain_versions():
         yield
 
 
+STAGE_PASSES = ("filter.logo_match", "filter.analysis", "filter.output")
+
+
+def pass_seconds(ctx, names=STAGE_PASSES) -> dict:
+    """The summed seconds of the spans of ctx's trace called each name."""
+    return {n: round(sum(s.seconds for s in ctx.trace.spans
+                         if s.name == n), 4) for n in names}
+
+
 def run_stage(clip, fmt, logos, mode, device, batch=BATCH, keep=False,
               **kw):
+    """run_filter_stage over the clip into a Sink: (result, sink, seconds,
+    the seconds of each pass)."""
     from amatsukaze_tpu_torch.pipeline.filter_stage import run_filter_stage
     from amatsukaze_tpu_torch.utils.context import AMTContext
 
@@ -711,13 +722,13 @@ def run_stage(clip, fmt, logos, mode, device, batch=BATCH, keep=False,
                 np.uint16 if ten_bit else np.uint8, keep)
     if device.type == "cuda":
         torch.cuda.synchronize()
+    ctx = AMTContext(level="warn")
     t0 = time.perf_counter()
-    res = run_filter_stage(AMTContext(level="warn"), lambda: iter(clip),
-                           len(clip), fmt, logos, mode, sink, batch=batch,
-                           device=device, **kw)
+    res = run_filter_stage(ctx, lambda: iter(clip), len(clip), fmt, logos,
+                           mode, sink, batch=batch, device=device, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return res, sink, time.perf_counter() - t0
+    return res, sink, time.perf_counter() - t0, pass_seconds(ctx)
 
 
 def stage_record(res, sink: Sink) -> dict:
@@ -754,10 +765,11 @@ def main_path(dev, clip, fmt, logos) -> dict:
     out = {"frames": len(clip)}
     for mode in ("kfm_vfr", "yadif"):
         reset_counts()
-        res, sink, secs = run_stage(clip, fmt, logos, mode, dev)
+        res, sink, secs, passes = run_stage(clip, fmt, logos, mode, dev)
         counts = read_counts()
         with plain_versions():
-            ref, ref_sink, ref_secs = run_stage(clip, fmt, logos, mode, dev)
+            ref, ref_sink, ref_secs, _ = run_stage(clip, fmt, logos, mode,
+                                                   dev)
         same_result(res, ref, sink, ref_sink, f"{mode} kernels vs plain")
         if res.best_logo != 0:
             raise AssertionError(f"{mode}: picked logo {res.best_logo}")
@@ -770,7 +782,7 @@ def main_path(dev, clip, fmt, logos) -> dict:
         info = dict(seconds=secs, plain_seconds=ref_secs,
                     fps=len(clip) / secs, plain_fps=len(clip) / ref_secs,
                     fps_without_sink=len(clip) / (secs - sink.seconds),
-                    sink_seconds=sink.seconds, pass_seconds=res.seconds,
+                    sink_seconds=sink.seconds, pass_seconds=passes,
                     out_frames=len(sink.digests), launches=counts,
                     record=stage_record(res, sink))
         if mode == "kfm_vfr":
@@ -791,7 +803,7 @@ def main_path(dev, clip, fmt, logos) -> dict:
         out[mode] = info
         log(f"main path {mode}: {len(clip)} frames in {secs:.3f} s = "
             f"{info['fps']:.2f} frames/s (plain versions {ref_secs:.3f} s; "
-            f"passes {res.seconds}, of which the test sink "
+            f"passes {passes}, of which the test sink "
             f"{sink.seconds:.3f} s); {len(sink.digests)} frames out; "
             f"launches {counts}"
             + (f"; cycles {info['cycle_modes']}" if mode == "kfm_vfr" else ""))
@@ -813,8 +825,8 @@ def profile_stage(dev, clip, fmt, logos) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = run_stage(clip[-PROFILE_FRAMES:], fmt, logos,
-                               "kfm_vfr", dev)
+        _, _, secs, _ = run_stage(clip[-PROFILE_FRAMES:], fmt, logos,
+                                  "kfm_vfr", dev)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
@@ -882,8 +894,9 @@ def small_reference(dev) -> None:
     logos = synth_clip.make_logos(h, w, lh, lw, lx, ly)
     fmt = synth_clip.video_format(h, w)
     for mode in ("kfm_vfr", "yadif"):
-        a, sa, _ = run_stage(clip, fmt, logos, mode, torch.device("cpu"), 8)
-        b, sb, _ = run_stage(clip, fmt, logos, mode, dev, 8)
+        a, sa, _, _ = run_stage(clip, fmt, logos, mode,
+                                torch.device("cpu"), 8)
+        b, sb, _, _ = run_stage(clip, fmt, logos, mode, dev, 8)
         same_result(a, b, sa, sb, f"small {mode} cpu vs card")
     log("small clip: card == CPU (kfm_vfr, yadif)")
 
@@ -900,7 +913,8 @@ def golden_reference(dev) -> None:
         made = time.perf_counter() - t0
         for mode in golden.MODES:
             reset_counts()
-            res, sink, secs = run_stage(clip, fmt, logos, mode, dev, batch)
+            res, sink, secs, _ = run_stage(clip, fmt, logos, mode, dev,
+                                           batch)
             counts = read_counts()
             got = stage_record(res, sink)
             want = recorded[name][mode]
@@ -977,19 +991,24 @@ def check_scene_metrics(dev, open_frames) -> dict:
     return out
 
 
+CM_PASSES = ("cm.pass", "cm.silence", "cm.decide")
+
+
 def run_cm(dev, name: str, out_dir=None):
+    """run_cm_analysis over a broadcast clip: (result, seconds, the seconds
+    of each step)."""
     from amatsukaze_tpu_torch.pipeline.cm_stage import run_cm_analysis
     from amatsukaze_tpu_torch.utils import synth_clip
     from amatsukaze_tpu_torch.utils.context import AMTContext
 
     open_frames, n, fmt, logos, pcm = synth_clip.broadcast_clip(name)
+    ctx = AMTContext(level="warn")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cm = run_cm_analysis(AMTContext(level="warn"), open_frames, n, fmt,
-                         logos, pcm_s16=pcm, batch=BATCH, device=dev,
-                         out_dir=out_dir)
+    cm = run_cm_analysis(ctx, open_frames, n, fmt, logos, pcm_s16=pcm,
+                         batch=BATCH, device=dev, out_dir=out_dir)
     torch.cuda.synchronize()
-    return cm, time.perf_counter() - t0
+    return cm, time.perf_counter() - t0, pass_seconds(ctx, CM_PASSES)
 
 
 def cm_truth(cm, what: str) -> None:
@@ -1012,8 +1031,9 @@ def cm_truth(cm, what: str) -> None:
 
 def profiled_cm_pass(dev):
     """One CM pass over the broadcast clip under torch.profiler, the counts
-    set to 0 just before and read just after: (result, seconds, launches,
-    the device busy share and the activities that take the device time).
+    set to 0 just before and read just after: (result, seconds, the seconds
+    of each step, launches, the device busy share and the activities that
+    take the device time).
     One pass serves the checks and the profile: the seconds include the
     profiler's cost."""
     from torch.autograd import DeviceType
@@ -1022,22 +1042,22 @@ def profiled_cm_pass(dev):
     reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cm, secs = run_cm(dev, "broadcast")
+        cm, secs, passes = run_cm(dev, "broadcast")
     counts = read_counts()
     acts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in acts) / 1e6
     if not busy_s:
         log("profile cm pass: no device time recorded (not measured)")
-        return cm, secs, counts, dict(wall_seconds=secs,
-                                      device_busy_share=None)
+        return cm, secs, passes, counts, dict(wall_seconds=secs,
+                                              device_busy_share=None)
     log(f"profile cm pass: wall {secs:.3f} s, device busy {busy_s:.4f} s "
         f"({100 * busy_s / secs:.2f}%)")
     for e in sorted(acts, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile cm pass {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:90]}")
-    return cm, secs, counts, dict(wall_seconds=secs,
-                                  device_busy_seconds=busy_s,
-                                  device_busy_share=busy_s / secs)
+    return cm, secs, passes, counts, dict(wall_seconds=secs,
+                                          device_busy_seconds=busy_s,
+                                          device_busy_share=busy_s / secs)
 
 
 def cm_golden(dev) -> None:
@@ -1050,7 +1070,7 @@ def cm_golden(dev) -> None:
     from amatsukaze_tpu_torch.utils import golden
 
     with tempfile.TemporaryDirectory() as out_dir:
-        cm, secs = run_cm(dev, "small", out_dir)
+        cm, secs, _ = run_cm(dev, "small", out_dir)
         files = {k: (Path(out_dir) / f).read_text()
                  for k, f in cm_stage.FILES.items()}
     golden.assert_cm_matches(golden.cm_stage_record(cm, files),
@@ -1080,23 +1100,25 @@ def cm_filter_stage(dev, cm) -> dict:
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = run_filter_stage(AMTContext(level="warn"), open_frames, n,
-                                   fmt, logos, "kfm_vfr", sink, batch=BATCH,
-                                   device=dev, cm=cm,
-                                   analysis_cache_bytes=cap,
+            ctx = AMTContext(level="warn")
+            res = run_filter_stage(ctx, open_frames, n, fmt, logos,
+                                   "kfm_vfr", sink, batch=BATCH, device=dev,
+                                   cm=cm, analysis_cache_bytes=cap,
                                    timecode_path=str(tc))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = read_counts()
             text = tc.read_text() if tc.exists() else ""
-        runs[label] = (res, sink, text, secs, counts)
+        passes = pass_seconds(ctx)
+        runs[label] = (res, sink, text, secs, counts, passes)
         log(f"cm filter stage kfm_vfr ({label}): {n} frames in {secs:.3f} s "
-            f"= {n / secs:.2f} frames/s; passes {res.seconds}, of which the "
+            f"= {n / secs:.2f} frames/s; passes {passes}, of which the "
             f"test sink {sink.seconds:.3f} s; {len(sink.digests)} frames out,"
             f" {res.spill_frames} from the spill; zones "
             f"{[(z.start_frame, z.end_frame) for z in res.zones]}; launches "
             f"{counts}")
-    (a, sa, ta, _, ca), (b, sb, tb, _, _) = runs["spill"], runs["no spill"]
+    (a, sa, ta, _, ca, _), (b, sb, tb, _, _, _) = (runs["spill"],
+                                                   runs["no spill"])
     if a.spill_frames != n or b.spill_frames != 0:
         raise AssertionError(f"spill frames {a.spill_frames}, "
                              f"{b.spill_frames}")
@@ -1106,9 +1128,9 @@ def cm_filter_stage(dev, cm) -> dict:
         raise AssertionError("cm filter stage: the spill changed the result")
     if ca.get("costs", 0) <= 0 or ca.get("logo_eval", 0) != 0:
         raise AssertionError(f"cm filter stage launches {ca}")
-    out = {label: dict(seconds=secs, pass_seconds=res.seconds,
+    out = {label: dict(seconds=secs, pass_seconds=passes,
                        sink_seconds=sink.seconds)
-           for label, (res, sink, _, secs, _) in runs.items()}
+           for label, (_, sink, _, secs, _, passes) in runs.items()}
     return dict(out, launches=ca, zones=za, out_frames=len(sa.digests))
 
 
@@ -1118,19 +1140,19 @@ def cm_phase(dev) -> dict:
     open_frames = synth_clip.broadcast_clip("broadcast")[0]
     out = {"scene_metrics": check_scene_metrics(dev, open_frames)}
     t0 = time.perf_counter()
-    cm, secs, counts, out["profile"] = profiled_cm_pass(dev)
+    cm, secs, passes, counts, out["profile"] = profiled_cm_pass(dev)
     cm_truth(cm, "cm pass 1440x1080")
     n_batches = -(-cm.num_frames // BATCH)
     if counts.get("logo_eval") != 2 * n_batches or len(counts) != 1:
         raise AssertionError(f"cm pass launches {counts}, {n_batches} "
                              f"batches x 2 logos")
     out.update(frames=cm.num_frames, seconds=secs, fps=cm.num_frames / secs,
-               pass_seconds=cm.seconds, launches=counts)
+               pass_seconds=passes, launches=counts)
     log(f"cm pass 1440x1080 (under the profiler): {cm.num_frames} frames in "
-        f"{secs:.3f} s = {out['fps']:.2f} frames/s (stream "
-        f"{cm.seconds['stream']:.3f} s, "
-        f"silence {cm.seconds['silence']:.3f} s, decision "
-        f"{cm.seconds['decision']:.3f} s); K3 launches {counts['logo_eval']};"
+        f"{secs:.3f} s = {out['fps']:.2f} frames/s (pass "
+        f"{passes['cm.pass']:.3f} s, silence {passes['cm.silence']:.3f} s, "
+        f"decision {passes['cm.decide']:.3f} s); K3 launches "
+        f"{counts['logo_eval']};"
         f" scene changes {cm.scene_changes}, silence {cm.silence}, logo "
         f"{cm.best_logo}, spans {cm.logo_spans}, trims {cm.result.trims}, "
         f"zones {[(z.start_frame, z.end_frame) for z in cm.result.cmzones]}"
@@ -1315,7 +1337,8 @@ def run_post_configs(dev, clip, logos) -> dict:
         mode = kw.pop("mode")
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        res, sink, secs = run_stage(frames, fmt, lg, mode, dev, **kw)
+        res, sink, secs, passes = run_stage(frames, fmt, lg, mode, dev,
+                                            **kw)
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
         # the output pass's chunks: the 8-frame head ramp, then batches
@@ -1333,7 +1356,7 @@ def run_post_configs(dev, clip, logos) -> dict:
                 frames):
             raise AssertionError(f"{name}: {len(sink.digests)} frames out")
         info = dict(frames=len(frames), out_frames=len(sink.digests),
-                    seconds=secs, pass_seconds=res.seconds,
+                    seconds=secs, pass_seconds=passes,
                     fps_without_sink=len(frames) / (secs - sink.seconds),
                     sink_seconds=sink.seconds, peak_bytes=peak,
                     launches=counts)
@@ -1341,7 +1364,7 @@ def run_post_configs(dev, clip, logos) -> dict:
         log(f"post config {name}: {len(frames)} frames {w}x{h} -> "
             f"{len(sink.digests)} frames {sink.shapes[0][1]}x"
             f"{sink.shapes[0][0]} {np.dtype(sink.dtype).name}; {secs:.3f} s "
-            f"(passes {res.seconds}); {info['fps_without_sink']:.2f} "
+            f"(passes {passes}); {info['fps_without_sink']:.2f} "
             f"frames/s without the sink's hashing ({sink.seconds:.3f} s); "
             f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
     return out
@@ -1365,10 +1388,11 @@ def profile_post(dev, clip, logos) -> dict:
                                                   golden.QP_SEED))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, secs = run_stage(clip[:PROFILE_POST_FRAMES],
-                               synth_clip.video_format(H, W), logos, "yadif",
-                               dev, post_filter="deblock,nr,deband,edge",
-                               qp_source=qp, resize=(1280, 720))
+        _, _, secs, _ = run_stage(clip[:PROFILE_POST_FRAMES],
+                                  synth_clip.video_format(H, W), logos,
+                                  "yadif", dev,
+                                  post_filter="deblock,nr,deband,edge",
+                                  qp_source=qp, resize=(1280, 720))
     acts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in acts) / 1e6
     if not busy_s:
@@ -1402,8 +1426,8 @@ def post_golden(dev) -> None:
         runs = []
         for where in (dev, torch.device("cpu")):
             reset_counts()
-            _, sink, secs = run_stage(f, fmt, lg, mode, where,
-                                      golden.POST_BATCH, keep=True, **kw)
+            _, sink, secs, _ = run_stage(f, fmt, lg, mode, where,
+                                         golden.POST_BATCH, keep=True, **kw)
             runs.append((sink.frames, secs, read_counts()))
         (card, secs, counts), (cpu, _, _) = runs
         vs_jax = golden.assert_post_record(card, recorded[name], name)
@@ -1546,7 +1570,7 @@ def svp_path(dev, clip, fmt, logos) -> dict:
     from amatsukaze_tpu_torch.utils.context import AMTContext
 
     reset_counts()
-    res, sink, secs = run_stage(clip, fmt, logos, "svp", dev)
+    res, sink, secs, passes = run_stage(clip, fmt, logos, "svp", dev)
     counts = read_counts()
     n_film = len(res.graph.vfr_plan.durations)
     want = (n_film * 5 + 1) // 2
@@ -1578,13 +1602,13 @@ def svp_path(dev, clip, fmt, logos) -> dict:
                              f"CPU")
     info = dict(frames=len(clip), film_frames=n_film,
                 out_frames=len(sink.digests), seconds=secs,
-                pass_seconds=res.seconds, fps=len(clip) / secs,
+                pass_seconds=passes, fps=len(clip) / secs,
                 fps_without_sink=len(clip) / (secs - sink.seconds),
                 sink_seconds=sink.seconds, launches=counts)
     log(f"svp: {len(clip)} frames ({n_film} film frames) -> "
         f"{len(sink.digests)} frames at 60000/1001 in {secs:.3f} s = "
         f"{info['fps']:.2f} source frames/s ({info['fps_without_sink']:.2f} "
-        f"without the sink's {sink.seconds:.3f} s; passes {res.seconds}); "
+        f"without the sink's {sink.seconds:.3f} s; passes {passes}); "
         f"launches {counts}; the first two batches' luma ("
         f"{len(outs[0])} frames) bit-equal to the CPU "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -1638,12 +1662,13 @@ def autovfr_path(dev, cm) -> dict:
                 sink, passes = None, None
             else:
                 sink = Sink(((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+                ctx = AMTContext(level="warn")
                 res = run_filter_stage(
-                    AMTContext(level="warn"), lambda: iter(frames), n, fmt,
+                    ctx, lambda: iter(frames), n, fmt,
                     logos, "autovfr", sink, batch=BATCH, device=dev, cm=cm,
                     open_section=open_section, autovfr_parallel=par,
                     autovfr_prefix=prefix)
-                fg, passes = res.graph, res.seconds
+                fg, passes = res.graph, pass_seconds(ctx)
                 if len(sink.digests) != res.spec.num_out_frames or \
                         res.spill_frames:
                     raise AssertionError(f"autovfr: {len(sink.digests)} "
@@ -1702,8 +1727,8 @@ def logo_generation(dev) -> dict:
 
     open_frames, n, fmt, region, truth = synth_clip.logo_scan_clip(
         "broadcast")
-    an = LogoAnalyzer(AMTContext(level="warn"), ScanRegion(*region),
-                      batch=GEN_BATCH, device=dev)
+    ctx = AMTContext(level="warn")
+    an = LogoAnalyzer(ctx, ScanRegion(*region), batch=GEN_BATCH, device=dev)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1722,13 +1747,15 @@ def logo_generation(dev) -> dict:
         raise AssertionError(f"logo generation: A off by {err_a}, B by "
                              f"{err_b}")
     selected = [int((m > 8).sum()) for m in an.min_fades]
+    passes = pass_seconds(ctx, ("logo.scan", "logo.refine",
+                                "logo.refine_final"))
     out = dict(frames=n, kept=kept, selected=selected, seconds=secs,
-               pass_seconds=dict(an.seconds), launches=counts,
+               pass_seconds=passes, launches=counts,
                a_err=err_a, b_err=err_b)
     log(f"logo generation: {n} frames {fmt.width}x{fmt.height}, region "
         f"{region}: {kept} "
         f"kept, {selected} selected in the refinements; {secs:.3f} s "
-        f"(per pass {an.seconds}); launches {counts}; A within {err_a:.4f} "
+        f"(per pass {passes}); launches {counts}; A within {err_a:.4f} "
         f"and B within {err_b:.4f} of the truth on the logo's core")
     return out
 
@@ -1801,8 +1828,8 @@ def mesh_stage(dev, clip, fmt, logos, main, mesh) -> dict:
     out = {}
     for mode in ("kfm_vfr", "yadif"):
         reset_counts()
-        res, sink, secs = run_stage(clip, fmt, logos, mode, dev,
-                                    filter_devices=mesh)
+        res, sink, secs, passes = run_stage(clip, fmt, logos, mode, dev,
+                                            filter_devices=mesh)
         counts = read_counts()
         single = main[mode]
         golden.assert_matches(stage_record(res, sink), single["record"],
@@ -1817,12 +1844,12 @@ def mesh_stage(dev, clip, fmt, logos, main, mesh) -> dict:
             raise AssertionError(f"mesh {mode}: launches {counts}, want "
                                  f"{want}; {res.shards} shards")
         out[mode] = dict(seconds=secs, single_seconds=single["seconds"],
-                         pass_seconds=res.seconds,
+                         pass_seconds=passes,
                          single_pass_seconds=single["pass_seconds"],
                          sink_seconds=sink.seconds, launches=counts)
         log(f"mesh {mode}: {len(clip)} frames {fmt.width}x{fmt.height} on "
             f"{n} logical shards of one card in {secs:.3f} s (one device: "
-            f"{single['seconds']:.3f} s; passes {res.seconds}, one device "
+            f"{single['seconds']:.3f} s; passes {passes}, one device "
             f"{single['pass_seconds']}); logo, decisions, plan and "
             f"{len(sink.digests)} frame digests equal to the one-device run;"
             f" launches {counts}")
@@ -1954,9 +1981,9 @@ def mesh_records(dev, n) -> dict:
         outs = []
         for where in (dev, torch.device("cpu")):
             reset_counts()
-            _, sink, _ = run_stage(frames, fmt, logos, mode, where, batch,
-                                   keep=True, post_filter=post,
-                                   filter_devices=make_mesh([where] * n))
+            _, sink, _, _ = run_stage(frames, fmt, logos, mode, where,
+                                      batch, keep=True, post_filter=post,
+                                      filter_devices=make_mesh([where] * n))
             outs.append(sink.frames)
             if where == dev:
                 counts[name] = read_counts()
