@@ -21,8 +21,13 @@ H.264 source stops in the filter stage on frames taller than its format.
 
 from __future__ import annotations
 
+import collections
+import os
+import re
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -109,9 +114,17 @@ def avlib_decoder_factory(pipeline, video_index: int):
 
 
 def mpeg2_decoder_factory(pipeline, video_index: int):
-    """Decode the PS intermediate with the in-build MPEG-2 decoder."""
+    """Decode the PS intermediate with the in-build MPEG-2 decoder: as
+    consecutive key-frame segments on worker threads where the file's
+    frames prove it safe (mpeg2_segment_plan), else as one stream."""
     path = pipeline.settings.int_video_file_path(video_index)
-    return decode_mpeg2_ps_file(path)
+    reform = getattr(pipeline, "_reform", None)
+    segments = None
+    if reform is not None:
+        segments = mpeg2_segment_plan(
+            path, reform.get_filter_source_frames(video_index),
+            pipeline.settings.conf.device_batch_frames)
+    return decode_mpeg2_segments(path, segments, trace=pipeline.ctx.trace)
 
 
 def h264ref_decoder_factory(pipeline, video_index: int):
@@ -312,6 +325,240 @@ def decode_mpeg2_ps_file(path: str, is_ps: bool = True):
         yield fr.y, fr.u, fr.v
 
 
+# -- the MPEG-2 decode in key-frame segments ---------------------------------
+#
+# The native engine parallelises only across the slices of one picture, so
+# the in-build factory also decodes stretches of the stream that start at
+# key frames on worker threads. Every segmented decode of the process takes
+# its workers and the frames it holds out of one budget (_BUDGET), so that
+# pipelines that decode at once share the host's cores and memory.
+
+def _leading_frames(path: str, is_ps: bool):
+    """The frames that the file's first picture displays after: the
+    leading B pictures of its open GOP, which a join at that picture drops
+    and the one-stream decode yields. None where the file does not open
+    with an I picture after a sequence header."""
+    from ..ts.qp_extract import iter_picture_chunks_file
+
+    chunks = iter_picture_chunks_file(path, is_ps, read_chunk=1 << 20)
+    try:
+        first = next(chunks, b"")
+        hdr = _picture_header(first)
+        if hdr is None or hdr[1] != 1 or not (
+                0 <= first.find(b"\x00\x00\x01\xb3")
+                < first.find(b"\x00\x00\x01\x00")):
+            return None
+        i_temporal = hdr[0]
+        lead = set()
+        for chunk in chunks:  # as mpeg2_ps_seek_opener's join skips them
+            hdr = _picture_header(chunk)
+            if hdr is None or (hdr[0] == i_temporal and hdr[1] != 3):
+                continue  # no picture; the I frame's second field
+            if hdr[1] != 3 or hdr[0] >= i_temporal:
+                break
+            lead.add(hdr[0])  # a field pair shares its temporal_reference
+        return len(lead)
+    finally:
+        chunks.close()
+
+
+def mpeg2_segment_plan(path: str, frames_meta, min_frames: int,
+                       is_ps: bool = True):
+    """[(file offset, frames)] of the segments of a segmented decode, in
+    order, that together yield the one-stream decode's frames, or None
+    where the file cannot be proven to decode the same that way.
+
+    Proven means: the native engine is there; the file opens with an I
+    picture after a sequence header, so it opens with its first key frame
+    and the frames it displays before it are that picture's leading B
+    pictures (`_leading_frames`: L of them, which the one-stream decode
+    yields and the reform drops); and the filter source frames step
+    through the coded frames in display order one at a time (each
+    `frame_index` the one before it or the next: a frame repeated by its
+    repeat_first_field flag appears more than once, none is left out). So
+    filter frame j is decoded frame L + frame_index[j] - frame_index[0]
+    (frame_index counts over every video file: a second file's starts
+    after the first's). A decode that joins the stream at
+    key frame k (mpeg2_ps_seek_opener) yields the one-stream decode's
+    frames from k's on; the leading B pictures of k's GOP belong to the
+    segment before. Segments are cut at the first key frame at least
+    `min_frames` decoded frames after the previous cut, as long as
+    `min_frames` remain; a long file has more of them, each as long. The
+    first segment decodes from the file's start, the last to its end.
+    None where that gives fewer than two."""
+    if not frames_meta:
+        return None
+    f0 = frames_meta[0].frame_index
+    if any(not 0 <= b.frame_index - a.frame_index <= 1
+           for a, b in zip(frames_meta, frames_meta[1:])):
+        return None
+    total = frames_meta[-1].frame_index - f0 + 1
+    min_frames = max(1, min_frames)
+    if total < 2 * min_frames:
+        return None
+    try:
+        from ..video.native import native_available
+
+        lead = _leading_frames(path, is_ps) if native_available() else None
+    except (OSError, RuntimeError):
+        return None
+    if lead is None:
+        return None
+    cuts = [(0, 0)]  # (decoded frame, file offset)
+    for j, m in enumerate(frames_meta):
+        d = lead + m.frame_index - f0
+        if (m.key_frame == j and d - cuts[-1][0] >= min_frames
+                and lead + total - d >= min_frames
+                and m.file_offset > cuts[-1][1]):
+            cuts.append((d, m.file_offset))
+    if len(cuts) < 2:
+        return None
+    ends = [d for d, _ in cuts[1:]] + [lead + total]
+    return [(off, end - d) for (d, off), end in zip(cuts, ends)]
+
+
+def _slice_threads() -> int:
+    """The threads each native MPEG-2 decoder starts per picture, read as
+    native/mpeg2dec.cpp reads them: AMATSUKAZE_DECODE_THREADS, else the
+    hardware's concurrency."""
+    env = os.environ.get("AMATSUKAZE_DECODE_THREADS", "")
+    if env:
+        lead = re.match(r"\s*[+-]?\d+", env)  # what atoi reads
+        return max(1, int(lead.group()) if lead else 0)
+    return max(1, os.cpu_count() or 1)
+
+
+def decode_worker_budget() -> int:
+    """How many segment workers the whole process may run at once: two
+    decoders' slice threads for each core it may run on. On an 8-core H100
+    host at 4 slice threads, 4 workers decoded the benchmark's recordings
+    faster than 2 or 3 (PERF.md, section 6); no other slice-thread count
+    was measured."""
+    return max(1, 2 * len(os.sched_getaffinity(0)) // _slice_threads())
+
+
+# The decoded frames that the segmented decodes of the process hold at
+# most: 600 MB at 1440x1080 4:2:0, enough for 4 workers on segments of 45
+# frames (a sequence header every 15 frames, a batch of 32).
+_HELD_FRAMES = 256
+
+
+class _DecodeBudget:
+    """The segment workers running in the process and the frames their
+    decodes hold, against decode_worker_budget() and _HELD_FRAMES."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.workers = 0
+        self.frames = 0
+
+    def take(self, segments: int, longest: int):
+        """(workers, frames) for a decode of `segments` segments of at
+        most `longest` frames: as many workers as both budgets leave, at
+        most one a segment, or (0, 0) where that is fewer than two. A
+        decode of W workers holds at most (W + 1) x `longest` frames."""
+        with self._lock:
+            n = min(segments, decode_worker_budget() - self.workers,
+                    (_HELD_FRAMES - self.frames) // max(1, longest) - 1)
+            if n < 2:
+                return 0, 0
+            held = (n + 1) * longest
+            self.workers += n
+            self.frames += held
+            return n, held
+
+    def give(self, workers: int, frames: int) -> None:
+        with self._lock:
+            self.workers -= workers
+            self.frames -= frames
+
+
+_BUDGET = _DecodeBudget()
+
+
+def decode_mpeg2_segments(path: str, segments, is_ps: bool = True,
+                          trace=None):
+    """Stream (Y, U, V) frames of an MPEG-2 PS/ES file in display order,
+    exactly as decode_mpeg2_ps_file yields them, decoding the `segments`
+    that mpeg2_segment_plan gives on worker threads.
+
+    W workers, as many as the process's budget leaves (_BUDGET), at most
+    one a segment. Each decodes one segment into a list with its own
+    NativeMpeg2Decoder: the first with decode_mpeg2_ps_file, the others
+    from their key frame with mpeg2_ps_seek_opener. The segments are handed
+    out in order, at most W at a time beyond the one being yielded, so the
+    frames held are at most (W + 1) x the longest segment, L: 225 frames
+    for W = 4 and L = 45 (a sequence header every 15 frames, a batch of
+    32). Closing the generator stops the running segments at their next
+    frame, cancels the others and waits for the workers; a worker's
+    exception re-raises here. A segment that gives fewer frames than its
+    plan (a stream that does not join as the plan proved) stops the
+    workers, and one stream decodes the rest.
+
+    With no plan or fewer than two workers free it is decode_mpeg2_ps_file.
+    `trace` (utils/perf.py), when given, counts `decode.segments` and
+    `decode.segment_frames` (the segments the workers decoded and the
+    frames they gave) and `decode.serial_files` (a file decoded as one
+    stream, or finished as one)."""
+    workers, held = (_BUDGET.take(len(segments), max(n for _, n in segments))
+                     if segments else (0, 0))
+    if not workers:
+        if trace is not None:
+            trace.add("decode.serial_files", 1)
+        yield from decode_mpeg2_ps_file(path, is_ps)
+        return
+    opener = mpeg2_ps_seek_opener(path, is_ps, read_chunk=1 << 20)
+    stop = threading.Event()
+
+    def decode(s: int) -> list:
+        offset, want = segments[s]
+        last = s == len(segments) - 1
+        frames = (opener(0, offset) if s else
+                  decode_mpeg2_ps_file(path, is_ps))
+        out = []
+        try:
+            for planes in frames:
+                if stop.is_set():
+                    break
+                out.append(planes)
+                if len(out) == want and not last:
+                    break
+        finally:
+            frames.close()
+        return out
+
+    pool = ThreadPoolExecutor(workers, thread_name_prefix="mpeg2-segment")
+    pending = collections.deque(pool.submit(decode, s)
+                                for s in range(workers))
+    yielded = done = 0
+    short = False
+    try:
+        for s, (_, want) in enumerate(segments):
+            frames = pending.popleft().result()
+            if s + workers < len(segments):
+                pending.append(pool.submit(decode, s + workers))
+            if len(frames) < want:  # the stream ended before the plan
+                short = True
+                break
+            done += 1
+            for planes in frames:
+                yielded += 1
+                yield planes
+    finally:
+        stop.set()
+        pool.shutdown(wait=True, cancel_futures=True)
+        _BUDGET.give(workers, held)
+        if trace is not None:
+            trace.add("decode.segments", done)
+            trace.add("decode.segment_frames", yielded)
+    if short:
+        if trace is not None:
+            trace.add("decode.serial_files", 1)
+        for j, planes in enumerate(decode_mpeg2_ps_file(path, is_ps)):
+            if j >= yielded:
+                yield planes
+
+
 def annexb_ps_seek_opener(path: str, fmt, is_ps: bool = True):
     """Byte-seek opener for CachedFrameSource over an H.264/HEVC PS/ES
     intermediate (the AMTSource byte-seek path for the AVC/HEVC codecs;
@@ -412,14 +659,16 @@ def _picture_header(chunk: bytes):
     return (b0 << 2) | (b1 >> 6), (b1 >> 3) & 7
 
 
-def mpeg2_ps_seek_opener(path: str, is_ps: bool = True):
+def mpeg2_ps_seek_opener(path: str, is_ps: bool = True,
+                         read_chunk: int = 8 << 20):
     """Byte-seek opener for CachedFrameSource over an MPEG2 PS/ES
     intermediate: `opener(key_index, file_offset)` decodes from the
     keyframe at `file_offset` and yields display-order frames starting
     at filter index `key_index` (ref AMTSource.hpp:736-773 byte-seek +
     skip-until-keyframe; the leading B pictures of an open GOP reference
     the previous GOP and are dropped, matching isFrameReady's
-    keyFramePTS gate at :600-612)."""
+    keyFramePTS gate at :600-612). The file is read `read_chunk` bytes
+    at a time."""
     from ..ts.qp_extract import iter_picture_chunks_file
     from ..video import Mpeg2RefDecoder
 
@@ -434,6 +683,7 @@ def mpeg2_ps_seek_opener(path: str, is_ps: bool = True):
         i_temporal = 0
         skipping_lead_b = False
         for chunk in iter_picture_chunks_file(path, is_ps=is_ps,
+                                              read_chunk=read_chunk,
                                               start_offset=file_offset):
             hdr = _picture_header(chunk)
             if hdr is None:
@@ -450,7 +700,8 @@ def mpeg2_ps_seek_opener(path: str, is_ps: bool = True):
                 # reference the previous (unavailable) GOP
                 if ctype == 3 and temporal < i_temporal:
                     continue
-                skipping_lead_b = False
+                # a field-coded I frame's second field comes before them
+                skipping_lead_b = temporal == i_temporal and ctype != 3
             for fr in dec.decode_picture(chunk):
                 yield fr.y, fr.u, fr.v
         for fr in dec.flush():

@@ -120,8 +120,10 @@ class TranscodePipeline:
     `encode` (per encode file a `gate`, `filter.logo_match`,
     `filter.analysis`, `encode.spawn`, `filter.output`, `encode.drain`),
     then `mux`. The decoder's own next() calls add to the counters
-    `decode.frames` and `decode.busy_s`. The report carries the trace under
-    "trace"."""
+    `decode.frames` and `decode.busy_s`; the in-build MPEG-2 decoder adds
+    `decode.segments`, `decode.segment_frames` and `decode.serial_files`
+    (pipeline/decoders.py: decode_mpeg2_segments). The report carries the
+    trace under "trace"."""
 
     def __init__(self, ctx, settings: Settings, decoder_factory=None,
                  audio_decoder_factory=None, caption_decoder=None,

@@ -20,8 +20,13 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 from amatsukaze_tpu_torch import cli
+from amatsukaze_tpu_torch.audio.aac_native import make_decoder
 from amatsukaze_tpu_torch.models.lgd import save_lgd
+from amatsukaze_tpu_torch.pipeline import decoders
 from amatsukaze_tpu_torch.pipeline.cm_stage import run_cm_analysis
+from amatsukaze_tpu_torch.pipeline.settings import Config, Settings
+from amatsukaze_tpu_torch.pipeline.splitter import AMTSplitter
+from amatsukaze_tpu_torch.pipeline.transcode import TranscodePipeline
 from amatsukaze_tpu_torch.ts import native as tnative
 from amatsukaze_tpu_torch.types import VideoFormat
 from amatsukaze_tpu_torch.utils import synth_ts
@@ -346,3 +351,33 @@ def test_cli_encodewaits_from_the_spans(report):
     (waits,) = report["encodewaits"]
     assert set(waits) == {"total", "filter_wait", "encoder_wait"}
     assert waits["total"] == round(drain["t1"] - out["t0"], 3)
+
+
+def test_mpeg2_factory_counts_its_segments(tmp_path, monkeypatch):
+    """The pipeline's MPEG-2 factory over the small TS's intermediate, as a
+    pass opens it (prefetched, through the frame cache): three segments of
+    a 16-frame batch on two workers (a sequence header every 15 frames:
+    cuts at 30 and 60), every frame counted on both sides."""
+    tnative.load_native()
+    ts, _, _ = synth_ts.ts_clip("small", str(tmp_path / "synth.ts"))
+    conf = Config()
+    conf.src_file_path = ts.path
+    conf.work_dir = str(tmp_path / "work")
+    conf.out_video_path = str(tmp_path / "out")
+    conf.device_batch_frames = 16
+    os.makedirs(conf.work_dir)
+    ctx = AMTContext(level="error")
+    st = Settings(ctx, conf)
+    pipe = TranscodePipeline(ctx, st, device="cpu",
+                             decoder_factory=decoders.mpeg2_decoder_factory)
+    pipe._reform = AMTSplitter(ctx, st,
+                               audio_decoder_factory=make_decoder).split()
+    pipe._reform.prepare(conf.split_sub, False)
+    monkeypatch.setattr(decoders, "decode_worker_budget", lambda: 2)
+    got = [f[0].copy() for f in pipe._open_frames(0)()]
+    assert len(got) == len(ts.recon)
+    assert all(np.array_equal(a, b[0]) for a, b in zip(got, ts.recon))
+    c = ctx.trace.counters
+    assert c["decode.segments"] == 3
+    assert c["decode.segment_frames"] == c["decode.frames"] == len(got)
+    assert c["decode.busy_s"] > 0 and "decode.serial_files" not in c
