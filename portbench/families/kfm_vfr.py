@@ -1,15 +1,12 @@
-"""The plain reference: what each configuration must hand the encoder,
-worked out again from the inputs the harness made (the writer's
-reconstruction of every frame, the logo planes, the truth of the layout),
-in NumPy and plain PyTorch. It imports nothing of the program and reads
-none of its decisions.
+"""The family `kfm_vfr`: the plain reference of a configuration that runs
+Amatsukaze's KFM VFR profile, its compared numbers and the control that
+breaks its guarantee. The harness finds this module by the configuration's
+"family"; it imports nothing of the program and reads none of its
+decisions.
 
 - CM pass: the trims and CM zones are the layout's program and CM parts;
   the chosen logo is the logo file that holds the painted logo.
-- Logo erase (Amatsukaze's Delogo, LogoScan.hpp:1248-1261): every source
-  frame, on Y, U and V, dst = floor(fade (A src + B 255) + (1 - fade) src
-  + 0.5) clamped to [0, 255], with the fade 1 on frames that carry the
-  logo and 0 elsewhere, box-averaged over +-4 frames (CalcFade2).
+- Logo erase: Amatsukaze's Delogo (pb/delogo.py) on every source frame.
 - The output file holds every frame of the recording (the program's
   default output: the CM zones go to the encoder as zones, nothing is
   cut).
@@ -26,7 +23,33 @@ none of its decisions.
   4 ticks a frame.
 
 `dtype` sets the precision of the arithmetic (the control runs it in
-bfloat16)."""
+bfloat16).
+
+Numbers (the worst over the window's recordings):
+  cm_wrong          recordings whose CM pass gave other trims, CM zones or
+                    logo than the layout's (cells whose traffic gives logos)
+  count_wrong       recordings whose encoder got another number of frames
+  timecode_gap_ms   widest gap between a served timecode and the plan's
+                    (kfm_vfr)
+  outside_gap       widest gap between a sampled frame and the reference's
+                    off the logo box (grown by the lines a bob reads)
+  recordings_differ recordings whose encoder got frames other than the
+                    first recording's, by their digests (every recording of
+                    a window is the same TS, so this reaches the frames
+                    outside the sample)
+  box_fit_gap       mean gap over the logo box of a sampled frame at the
+                    fades that explain it best (cells with a logo): the
+                    erase's arithmetic, whatever fade the program estimated
+  fade_flips        sampled fields whose best fade is off by more than one
+                    half from the layout's, where that is 0 or 1 (the erase
+                    left out, or done where there is no logo)
+  samples_missing   sampled frames that the encoder did not get
+  whole_bobbed      sampled film frames coded whole in one picture (both
+                    fields of one film instant) that were served as the
+                    bob UCF may put in a film frame's place: UCF bobs a
+                    weave that combs, and only the 3:2 repairs, whose
+                    fields come from two intra pictures, comb here
+"""
 
 from __future__ import annotations
 
@@ -35,55 +58,19 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-FADE_WINDOW = 4
+from pb import compare, delogo
+
 FILM_TICKS = 5
 VIDEO_TICKS = 4
 CLOCK = (120000, 1001)
 
 
-def fade_curve(truth: dict) -> np.ndarray:
-    """Per source frame erase fade of the painted logo."""
-    on = np.zeros(truth["frames"])
-    for s in truth["scenes"]:
-        if s["logo"]:
-            on[s["first"]:s["end"]] = 1.0
-    k = np.ones(2 * FADE_WINDOW + 1) / (2 * FADE_WINDOW + 1)
-    fade = np.convolve(np.pad(on, FADE_WINDOW, mode="edge"), k, mode="valid")
-    return np.clip(fade.astype(np.float32), 0.0, 1.0)
-
-
-def logo_planes(lgd_planes, geometry: dict) -> list:
-    """Full-frame (A, B) float32 planes per colour (identity off the
-    logo) from the painted logo's window planes."""
-    lx, ly, lw, lh = geometry["logo_box"]
-    h, w = geometry["height"], geometry["width"]
-    out = []
-    for p, s in enumerate((1, 2, 2)):
-        a = np.ones((h // s, w // s), np.float32)
-        b = np.zeros((h // s, w // s), np.float32)
-        a[ly // s:ly // s + lh // s, lx // s:lx // s + lw // s] = \
-            lgd_planes[2 * p]
-        b[ly // s:ly // s + lh // s, lx // s:lx // s + lw // s] = \
-            lgd_planes[2 * p + 1]
-        out.append((a, b))
-    return out
-
-
-def erase(planes, ab: list, fade: float, dtype=torch.float32,
-          device="cpu") -> tuple:
-    """Delogo one frame's (Y, U, V) uint8 planes at `fade`."""
-    out = []
-    for x, (a, b) in zip(planes, ab):
-        src = torch.from_numpy(np.asarray(x)).to(device, dtype)
-        at = torch.from_numpy(a).to(device, dtype)
-        bt = torch.from_numpy(b).to(device, dtype)
-        f = torch.tensor(fade, dtype=dtype, device=device)
-        bg = at * src + bt * torch.tensor(255.0, dtype=dtype, device=device)
-        tmp = f * bg + (torch.tensor(1.0, dtype=dtype, device=device)
-                        - f) * src
-        out.append(torch.floor(tmp + 0.5).clamp(0.0, 255.0)
-                   .to(torch.uint8).cpu().numpy())
-    return tuple(out)
+def reference(config: dict, rec, truth: dict, geometry: dict, logo_planes,
+              dtype=torch.float32, device="cpu"):
+    """The Reference of one recording (`rec` the synth.Recording,
+    `logo_planes` the painted logo's six window planes, None without a
+    logo)."""
+    return Reference(rec, truth, geometry, logo_planes, dtype, device)
 
 
 def kfm_plan(rec, n: int) -> tuple:
@@ -148,18 +135,15 @@ class Reference:
     # lines of a plane next to the logo box that a bob reads from the box
     REACH = 2
 
-    def __init__(self, family: str, rec, truth: dict, geometry: dict,
-                 lgd_planes=None, dtype=torch.float32, device="cpu",
-                 workers: int = 8):
-        if family != "kfm_vfr":
-            raise ValueError(f"no reference for the family {family!r}")
-        self.family, self.rec, self.truth = family, rec, truth
+    def __init__(self, rec, truth: dict, geometry: dict, lgd_planes=None,
+                 dtype=torch.float32, device="cpu", workers: int = 8):
+        self.rec, self.truth = rec, truth
         self.geometry, self.dtype, self.device = geometry, dtype, device
         self.workers = workers
         self.cm_pass = truth["logos_given"]
-        self.ab = (logo_planes(lgd_planes, geometry)
+        self.ab = (delogo.logo_planes(lgd_planes, geometry)
                    if lgd_planes is not None else None)
-        self.fade = fade_curve(truth) if self.ab is not None else None
+        self.fade = delogo.fade_curve(truth) if self.ab is not None else None
         self.plan, self.ticks = kfm_plan(rec, truth["frames"])
 
     @property
@@ -168,6 +152,22 @@ class Reference:
 
     def timecodes(self):
         return timecodes(self.ticks)
+
+    def seams(self) -> list:
+        """Output indices on either side of each edge between two parts of
+        the layout (where the logo fades and the content changes)."""
+        firsts = {p["first"] for p in self.truth["parts"][1:]}
+        out = []
+        for i in range(1, len(self.plan)):
+            if any(self.plan[i - 1][0] < f <= self.plan[i][0]
+                   for f in firsts):
+                out += [i - 1, i]
+        return out
+
+    def filter_result(self) -> dict:
+        """The filter analysis's decisions as the configuration makes them
+        (what a program that is right reports)."""
+        return dict(num_out=self.num_out, timecodes=list(self.timecodes()))
 
     def frames(self, indices: list) -> dict:
         """Output frames at the given output indices: for each, the list of
@@ -191,7 +191,8 @@ class Reference:
     def erased(self, planes, fade: float) -> tuple:
         if self.ab is None:
             return planes
-        return erase(planes, self.ab, float(fade), self.dtype, self.device)
+        return delogo.erase(planes, self.ab, float(fade), self.dtype,
+                            self.device)
 
     def fit_box(self, got: tuple, how: tuple) -> tuple:
         """The fades that best explain a served frame's logo box: each
@@ -266,3 +267,84 @@ class Reference:
             cnt += g.numel()
         j = int(torch.argmin(gaps))
         return float(gaps[j]) / cnt, (float(fades[j]), float(fades[j]))
+
+
+def numbers(ref, expected: dict, served: list, cm_results: list,
+            filter_results: list) -> dict:
+    """The compared numbers of one run. expected: output index -> the
+    (frame, how it was made) pairs the reference allows there, the first
+    its own; served: per recording, the encoder's file as loaded (None
+    where it wrote none); cm_results / filter_results: per recording, what
+    the CM pass and the filter analysis decided (None where they did not
+    run)."""
+    truth = ref.truth
+    out = dict(count_wrong=0, samples_missing=0, outside_gap=0,
+               recordings_differ=compare.recordings_differ(served))
+    if ref.cm_pass:
+        want_logo = truth["painted_logo_file"]
+        out["cm_wrong"] = sum(
+            1 for c in cm_results
+            if c is None or c["trims"] != truth["trims"]
+            or c["cm_zones"] != truth["cm_zones"]
+            or c["logo_file"] != want_logo)
+    want_tc = ref.timecodes()
+    gap = 0.0
+    for f in filter_results:
+        tc = None if f is None else np.asarray(f["timecodes"], float)
+        if tc is None or len(tc) != len(want_tc):
+            gap = float("inf")
+        else:
+            gap = max(gap, float(np.abs(tc - want_tc).max(initial=0.0)))
+    out["timecode_gap_ms"] = gap
+    whole_bobbed = 0
+    box_gap, flips = 0.0, 0
+    for enc in served:
+        if enc is None or enc["n_frames"] != ref.num_out:
+            out["count_wrong"] += 1
+        if enc is None:
+            out["samples_missing"] += len(expected)
+            continue
+        for k, allowed in expected.items():
+            got = enc["frames"].get(k)
+            want0 = allowed[0][0]
+            if got is None or any(g.shape != w.shape
+                                  for g, w in zip(got, want0)):
+                out["samples_missing"] += 1
+                continue
+            off = [~m for m in compare.box_masks(ref.geometry, ref.REACH)] \
+                if ref.ab is not None else [np.ones(w.shape, bool)
+                                            for w in want0]
+            gaps = [compare.outside_gap(got, want, off)
+                    for want, _ in allowed]
+            pick = int(np.argmin(gaps))
+            out["outside_gap"] = max(out["outside_gap"], gaps[pick])
+            _, top, bottom = allowed[0][1]
+            if len(allowed) > 1 and top == bottom and pick > 0:
+                whole_bobbed += 1
+            how = allowed[pick][1]
+            if ref.ab is None:
+                continue
+            gap, fades = ref.fit_box(got, how)
+            box_gap = max(box_gap, gap)
+            for src, f in zip(how[1:], fades):
+                want = float(ref.fade[src])
+                if want in (0.0, 1.0) and abs(f - want) > 0.5:
+                    flips += 1
+    if ref.ab is not None:
+        out["box_fit_gap"] = box_gap
+        out["fade_flips"] = flips
+    out["whole_bobbed"] = whole_bobbed
+    return out
+
+
+def guarantee_control(ref, keep: list) -> tuple:
+    """What a program that breaks the profile's guarantee hands the
+    encoder: the coded frames as they are, at 30p, with no telecine
+    removed. (frames at the kept output indices, output count, filter
+    results)."""
+    n = ref.truth["frames"]
+    woven = {i: ref.erased(ref.rec.reconstruct(i),
+                           ref.fade[i] if ref.ab else 0.0)
+             for i in keep if i < n}
+    return woven, n, [dict(num_out=n,
+                           timecodes=list(timecodes([VIDEO_TICKS] * n)))]

@@ -1,33 +1,11 @@
-"""The comparison that decides `correct`: what the timed path produced
-against the reference, once the window has closed. Each number has a limit
-(portbench/cells/<cell>.json "limits"); the run is correct when every
-recording completed and every number is within its limit.
-
-Numbers (the worst over the window's recordings):
-  cm_wrong          recordings whose CM pass gave other trims, CM zones or
-                    logo than the layout's (cells whose traffic gives logos)
-  count_wrong       recordings whose encoder got another number of frames
-  timecode_gap_ms   widest gap between a served timecode and the plan's
-                    (kfm_vfr)
-  outside_gap       widest gap between a sampled frame and the reference's
-                    off the logo box (grown by the lines a bob reads)
-  recordings_differ recordings whose encoder got frames other than the
-                    first recording's, by their digests (every recording of
-                    a window is the same TS, so this reaches the frames
-                    outside the sample)
-  box_fit_gap       mean gap over the logo box of a sampled frame at the
-                    fades that explain it best (cells with a logo): the
-                    erase's arithmetic, whatever fade the program estimated
-  fade_flips        sampled fields whose best fade is off by more than one
-                    half from the layout's, where that is 0 or 1 (the erase
-                    left out, or done where there is no logo)
-  samples_missing   sampled frames that the encoder did not get
-  whole_bobbed      sampled film frames coded whole in one picture (both
-                    fields of one film instant) that were served as the
-                    bob UCF may put in a film frame's place: UCF bobs a
-                    weave that combs, and only the 3:2 repairs, whose
-                    fields come from two intra pictures, comb here
-"""
+"""The comparison that decides `correct`, the parts every configuration's
+family shares: the sample of output frames the encoder keeps whole, the
+logo box's masks, the gap of two frames, the recordings whose digests
+differ, the encoder's file as loaded, and the judgement of each number
+against its limit (portbench/cells/<cell>.json "limits"). The run is
+correct when every recording completed and every number is within its
+limit. Which numbers a cell has, and how each is worked out, is its
+family's (`numbers` in portbench/families/<family>.py)."""
 
 from __future__ import annotations
 
@@ -61,73 +39,6 @@ def box_masks(geometry: dict, reach: int) -> list:
         m[y0:y1, x0:x1] = True
         masks.append(m)
     return masks
-
-
-def numbers(ref, expected: dict, served: list, cm_results: list,
-            filter_results: list) -> dict:
-    """The compared numbers of one run. expected: output index -> the
-    (frame, how it was made) pairs the reference allows there, the first
-    its own; served: per recording, the encoder's file as loaded (None
-    where it wrote none); cm_results / filter_results: per recording, what
-    the CM pass and the filter analysis decided (None where they did not
-    run)."""
-    truth = ref.truth
-    out = dict(count_wrong=0, samples_missing=0, outside_gap=0,
-               recordings_differ=recordings_differ(served))
-    if ref.cm_pass:
-        want_logo = truth["painted_logo_file"]
-        out["cm_wrong"] = sum(
-            1 for c in cm_results
-            if c is None or c["trims"] != truth["trims"]
-            or c["cm_zones"] != truth["cm_zones"]
-            or c["logo_file"] != want_logo)
-    want_tc = ref.timecodes()
-    gap = 0.0
-    for f in filter_results:
-        tc = None if f is None else np.asarray(f["timecodes"], float)
-        if tc is None or len(tc) != len(want_tc):
-            gap = float("inf")
-        else:
-            gap = max(gap, float(np.abs(tc - want_tc).max(initial=0.0)))
-    out["timecode_gap_ms"] = gap
-    whole_bobbed = 0
-    box_gap, flips = 0.0, 0
-    for enc in served:
-        if enc is None or enc["n_frames"] != ref.num_out:
-            out["count_wrong"] += 1
-        if enc is None:
-            out["samples_missing"] += len(expected)
-            continue
-        for k, allowed in expected.items():
-            got = enc["frames"].get(k)
-            want0 = allowed[0][0]
-            if got is None or any(g.shape != w.shape
-                                  for g, w in zip(got, want0)):
-                out["samples_missing"] += 1
-                continue
-            off = [~m for m in box_masks(ref.geometry, ref.REACH)] \
-                if ref.ab is not None else [np.ones(w.shape, bool)
-                                            for w in want0]
-            gaps = [outside_gap(got, want, off) for want, _ in allowed]
-            pick = int(np.argmin(gaps))
-            out["outside_gap"] = max(out["outside_gap"], gaps[pick])
-            _, top, bottom = allowed[0][1]
-            if len(allowed) > 1 and top == bottom and pick > 0:
-                whole_bobbed += 1
-            how = allowed[pick][1]
-            if ref.ab is None:
-                continue
-            gap, fades = ref.fit_box(got, how)
-            box_gap = max(box_gap, gap)
-            for src, f in zip(how[1:], fades):
-                want = float(ref.fade[src])
-                if want in (0.0, 1.0) and abs(f - want) > 0.5:
-                    flips += 1
-    if ref.ab is not None:
-        out["box_fit_gap"] = box_gap
-        out["fade_flips"] = flips
-    out["whole_bobbed"] = whole_bobbed
-    return out
 
 
 def recordings_differ(served: list) -> int:

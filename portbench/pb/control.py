@@ -3,8 +3,9 @@ computed one precision below the configuration's (bfloat16 where it states
 float32), and judged by the same numbers and limits. Where a cell's path
 holds no arithmetic that a lower precision changes (no logo: the frames are
 woven bytes), the control breaks the guarantee the configuration states
-instead: the coded frames go out as they are, at 30p, with no telecine
-removed. Both are worked out for every cell.
+instead, as its family gives it (`guarantee_control`; kfm_vfr: the coded
+frames go out as they are, at 30p, with no telecine removed). Both are
+worked out for every cell.
 
     python3 portbench/pb/control.py --workload <cell> --seeds 1,2,3
 
@@ -26,8 +27,7 @@ if __package__ in (None, ""):
     __package__ = "pb"
 
 from . import compare, harness, traffic  # noqa: E402
-from .reference import VIDEO_TICKS, timecodes  # noqa: E402
-from .spec import load_cell  # noqa: E402
+from .spec import load_cell, load_family  # noqa: E402
 
 LOWER = torch.bfloat16
 
@@ -38,30 +38,27 @@ def served(frames: dict, n_out: int) -> dict:
 
 def control_numbers(cell, seed: int, device="cuda", geometry=None) -> dict:
     """{"lower": numbers of the bfloat16 reference, "guarantee": numbers of
-    the 30p weave} against the float32 reference."""
+    the family's guarantee-breaking program} against the float32
+    reference."""
     geometry = geometry or cell.config["geometry"]
+    family = load_family(cell)
     rec = traffic.ensure_recording(cell.traffic_name, cell.traffic, geometry,
                                    seed)
-    ref = harness.reference_for(cell.config, rec, geometry, device=device)
-    low = harness.reference_for(cell.config, rec, geometry, dtype=LOWER,
+    ref = harness.reference_for(cell, rec, geometry, device=device)
+    low = harness.reference_for(cell, rec, geometry, dtype=LOWER,
                                 device=device)
     keep = harness.sample_for(ref, seed)
     expected = ref.frames(keep)
     truth = rec["truth"]
     cm = [dict(trims=truth["trims"], cm_zones=truth["cm_zones"],
                logo_file=truth["painted_logo_file"])]
-    filt = [dict(num_out=ref.num_out, timecodes=list(ref.timecodes()))]
     got = {i: v[0][0] for i, v in low.frames(keep).items()}
-    out = {"lower": compare.numbers(ref, expected,
-                                    [served(got, ref.num_out)],
-                                    cm, filt)}
-    n = truth["frames"]
-    woven = {i: ref.erased(ref.rec.reconstruct(i),
-                           ref.fade[i] if ref.ab else 0.0)
-             for i in keep if i < n}
-    filt30 = [dict(num_out=n, timecodes=list(timecodes([VIDEO_TICKS] * n)))]
-    out["guarantee"] = compare.numbers(
-        ref, expected, [served(woven, n)], cm, filt30)
+    out = {"lower": family.numbers(ref, expected,
+                                   [served(got, ref.num_out)],
+                                   cm, [ref.filter_result()])}
+    frames, n, filt = family.guarantee_control(ref, keep)
+    out["guarantee"] = family.numbers(ref, expected, [served(frames, n)], cm,
+                                      filt)
     return out
 
 

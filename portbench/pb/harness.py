@@ -6,7 +6,10 @@ Returns the result object that run.py prints.
 `setup_s` is the time from the process's start to the window's, less the
 seconds spent writing the seed's recordings when they were not cached: they
 are the benchmark's inputs, as the reference is its judge, and a check's
-second set of runs finds the first set's recordings cached."""
+second set of runs finds the first set's recordings cached.
+`device_memory_gb` is the card's peak of allocated memory over the window.
+The window's rate of source frames is a per-layer metric
+(`metrics/entry.transcode_fps.py`) and is logged on every run."""
 
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 
 from . import compare, entries, traffic
 from .probes import Recorder
-from .spec import Cell
+from .spec import Cell, load_family
 
 WARMUP_FRAMES = 60
 WARMUP_SEED = 1
@@ -79,7 +82,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             shutil.rmtree(work / "warmup0", ignore_errors=True)
             recorder.spans.clear()
             recorder.decisions.clear()
-            ref = reference_for(cell.config, rec, geometry)
+            ref = reference_for(cell, rec, geometry)
             keep = sample_for(ref, seed)
             os.environ["PORTBENCH_KEEP_FRAMES"] = ",".join(map(str, keep))
             entry = entries.make_entry(cell, rec, work, encoder, device)
@@ -108,7 +111,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         out = dict(correct=False, attempted=len(win.recordings),
                    failed=failed)
         out["metrics"] = {}
-        e2e = dict(transcode_fps=win.fps, setup_s=setup_s)
+        e2e = dict(setup_s=setup_s, device_memory_gb=peak / 1e9)
         log(f"window: {len(win.recordings)} recordings of "
             f"{rec['truth']['frames']} frames in {win.seconds:.3f} s = "
             f"{win.fps:.3f} frames/s; each "
@@ -143,7 +146,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         if on_card:
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
-        nums = check(ref, keep, win, recorder, dev)
+        nums = check(cell, ref, keep, win, recorder, dev)
         log(f"reference and comparison: {time.perf_counter() - t_ref:.2f} s")
         ok, lines = compare.judge(nums, cell.limits, failed)
         out["correct"] = ok
@@ -156,25 +159,26 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         shutil.rmtree(work, ignore_errors=True)
 
 
-def reference_for(config: dict, rec: dict, geometry: dict, dtype=None,
+def reference_for(cell: Cell, rec: dict, geometry: dict, dtype=None,
                   device="cpu"):
+    """The reference of the cell's configuration's family for the seed's
+    recording."""
     import torch
-
-    from .reference import Reference
 
     truth = rec["truth"]
     planes = None
     if truth["logos_given"]:
         planes = read_lgd_planes(rec["logos"][truth["painted_logo_file"]])
-    return Reference(config["family"], traffic.recording_from_truth(
-        truth, geometry, truth["seed"]), truth, geometry, planes,
-        dtype or torch.float32, device)
+    return load_family(cell).reference(
+        cell.config, traffic.recording_from_truth(truth, geometry,
+                                                  truth["seed"]),
+        truth, geometry, planes, dtype or torch.float32, device)
 
 
 def sample_for(ref, seed: int) -> list:
     """The output frames the encoder keeps whole for the comparison."""
     return compare.sample_indices(ref.num_out, seed, SAMPLE_FRAMES,
-                                  seams(ref))
+                                  ref.seams())
 
 
 def read_lgd_planes(path: str) -> list:
@@ -195,19 +199,10 @@ def read_lgd_planes(path: str) -> list:
     return out
 
 
-def seams(ref) -> list:
-    """Output indices on either side of each edge between two parts of the
-    layout (where the logo fades and the content changes)."""
-    firsts = {p["first"] for p in ref.truth["parts"][1:]}
-    out = []
-    for i in range(1, len(ref.plan)):
-        if any(ref.plan[i - 1][0] < f <= ref.plan[i][0] for f in firsts):
-            out += [i - 1, i]
-    return out
-
-
-def check(ref, keep: list, win, recorder: Recorder, dev) -> dict:
-    """The compared numbers of the window's recordings."""
+def check(cell: Cell, ref, keep: list, win, recorder: Recorder,
+          dev) -> dict:
+    """The compared numbers of the window's recordings, by the cell's
+    family."""
     ref.device = dev
     expected = ref.frames(keep)
     by_src = {}
@@ -223,7 +218,7 @@ def check(ref, keep: list, win, recorder: Recorder, dev) -> dict:
         filters.append(d.get("filter"))
         served.append(compare.load_served(r.result.get("report"))
                       if r.result.get("ok") else None)
-    return compare.numbers(ref, expected, served, cms, filters)
+    return load_family(cell).numbers(ref, expected, served, cms, filters)
 
 
 def logo_index(path) -> int | None:

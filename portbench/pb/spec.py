@@ -1,8 +1,10 @@
 """Finds what BENCHMARK.json names, by name: a cell's entry and its own file
-(portbench/cells/<cell>.json), its configuration's file, its traffic mix
-(portbench/traffic/<traffic>.json) and the readers of its metrics
-(portbench/metrics/<metric>.py). A later cell, configuration, traffic mix
-or metric is a new file and a new entry; nothing here changes."""
+(portbench/cells/<cell>.json), its configuration's file, the module of the
+configuration's family (portbench/families/<family>.py: its reference and
+compared numbers), its traffic mix (portbench/traffic/<traffic>.json) and
+the readers of its metrics (portbench/metrics/<metric>.py). A later cell,
+configuration, family, traffic mix or metric is a new file and a new
+entry; nothing here changes."""
 
 from __future__ import annotations
 
@@ -72,11 +74,17 @@ def load_cell(name: str, bench: dict | None = None,
     conf_entry = next(c for c in bench["configs"]
                       if c["name"] == entry["config"])
     traffic_name, traffic = load_traffic(entry["traffic"], bench_dir)
+    config = load_json(repo / conf_entry["file"])
+    family = family_path(config.get("family"), bench_dir)
+    if not family.is_file():
+        raise FileNotFoundError(
+            f"no module for the family {config.get('family')!r} of the "
+            f"configuration {conf_entry['name']!r}: looked for {family}")
     return Cell(
         name=name, entry=entry,
         limits=load_json(bench_dir / "cells" / f"{name}.json")["limits"],
         config_name=entry["config"],
-        config=load_json(repo / conf_entry["file"]),
+        config=config,
         traffic_name=traffic_name, traffic=traffic,
         end_to_end=[m for m in bench["end_to_end"]
                     if _reports(m, name, bench)],
@@ -84,12 +92,32 @@ def load_cell(name: str, bench: dict | None = None,
                    if _reports(m, name, bench)], bench_dir=bench_dir)
 
 
-def load_metric_reader(name: str, bench_dir: Path = BENCH_DIR):
-    """The module portbench/metrics/<name>.py; its read(run) returns the
-    metric's value, or None where the run holds nothing to read."""
-    path = bench_dir / "metrics" / f"{name}.py"
+def _load_module(prefix: str, path: Path):
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric_reader(name: str, bench_dir: Path = BENCH_DIR):
+    """The module portbench/metrics/<name>.py; its read(run) returns the
+    metric's value, or None where the run holds nothing to read."""
+    return _load_module("portbench_metric_",
+                        bench_dir / "metrics" / f"{name}.py")
+
+
+def family_path(name, bench_dir: Path = BENCH_DIR) -> Path:
+    return bench_dir / "families" / f"{name}.py"
+
+
+def load_family(cell: Cell):
+    """The module of the cell's configuration's family, which gives
+    `reference(config, rec, truth, geometry, logo_planes, dtype, device)`
+    (an object with `num_out`, `seams()`, `frames(indices)` and
+    `filter_result()`), `numbers(ref, expected, served, cm_results,
+    filter_results)` (the compared numbers, keyed as the cell's limits) and
+    `guarantee_control(ref, keep)` (the frames, output count and filter
+    results of a program that breaks the configuration's guarantee)."""
+    return _load_module("portbench_family_",
+                        family_path(cell.config["family"], cell.bench_dir))

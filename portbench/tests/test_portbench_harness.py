@@ -10,13 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from pb import compare, fake_encoder, reference, roofline, synth, trace, traffic
+from pb import compare, delogo, fake_encoder, roofline, synth, trace, traffic
 from pb import window as win
 from pb.probes import Span, interval_union
-from pb.spec import BENCH_DIR, REPO_DIR, load_cell, load_json, load_metric_reader
+from pb.spec import (BENCH_DIR, REPO_DIR, load_cell, load_family, load_json,
+                     load_metric_reader)
 
 BENCH = load_json(REPO_DIR / "BENCHMARK.json")
 SMALL = dict(width=128, height=96, logo_box=[96, 8, 24, 16])
+KFM = load_family(load_cell("kfm_vfr.cm_logo", BENCH))
 
 
 # -- discovery ---------------------------------------------------------------
@@ -28,7 +30,7 @@ def test_every_cell_finds_its_files(cell):
     assert c.traffic["parts"] and c.traffic["entry"] in ("cli", "server")
     assert "outside_gap" in c.limits
     names = {m["name"] for m in c.end_to_end}
-    assert names == {"transcode_fps", "setup_s"}
+    assert names == {"device_memory_gb", "setup_s"}
     for m in c.per_layer:
         assert hasattr(load_metric_reader(m["name"]), "read")
         assert cell in m["workloads"]
@@ -262,18 +264,18 @@ def test_reconstruction_is_what_the_decoder_returns(tmp_path):
 def test_kfm_plan_from_the_layout():
     mix = load_json(BENCH_DIR / "traffic" / "cm_logo.json")
     rec, truth = traffic.layout(mix, SMALL, 11)
-    plan, ticks = reference.kfm_plan(rec, truth["frames"])
+    plan, ticks = KFM.kfm_plan(rec, truth["frames"])
     film = [k for s in rec.scenes if s.film for k in range(s.first, s.end)]
     video = [k for s in rec.scenes if not s.film
              for k in range(s.first, s.end)]
-    assert ticks.count(reference.FILM_TICKS) == len(film) * 4 // 5
-    assert ticks.count(reference.VIDEO_TICKS) == len(video)
+    assert ticks.count(KFM.FILM_TICKS) == len(film) * 4 // 5
+    assert ticks.count(KFM.VIDEO_TICKS) == len(video)
     for (top, bottom), t in zip(plan, ticks):
         _, tt, _ = rec.field_times(top)
         _, _, bb = rec.field_times(bottom)
-        if t == reference.FILM_TICKS:
+        if t == KFM.FILM_TICKS:
             assert tt == bb  # one film instant in both fields
-    tc = reference.timecodes(ticks)
+    tc = KFM.timecodes(ticks)
     assert tc[1] == pytest.approx(5 * 1001 / 120)
 
 
@@ -286,7 +288,7 @@ def test_truth_of_the_layout():
         assert sorted(truth["logo_order"]) == [0, 1]
         cuts = [s["first"] for s in truth["scenes"]]
         assert all(c % 5 == 0 for c in cuts)
-    fade = reference.fade_curve(truth)
+    fade = delogo.fade_curve(truth)
     assert fade[0] == 1.0 and fade[450] == 0.0
     assert 0.0 < fade[224] < 1.0
 
@@ -296,17 +298,18 @@ def test_fit_box_finds_the_fade(fade):
     mix = load_json(BENCH_DIR / "traffic" / "cm_logo.json")
     rec, truth = traffic.layout(mix, SMALL, 3)
     planes = synth.make_logos(96, 128, tuple(SMALL["logo_box"]))[0]
-    ref = reference.Reference("kfm_vfr", rec, truth, SMALL, planes)
+    config = load_cell("kfm_vfr.cm_logo", BENCH).config
+    ref = KFM.reference(config, rec, truth, SMALL, planes)
     ref.raw = {0: rec.reconstruct(0), 1: rec.reconstruct(1)}
     f = np.float32(round(fade * 90) / 90)
-    got = reference.weave(ref.erased(ref.raw[0], f), ref.erased(ref.raw[1], 0.0))
+    got = KFM.weave(ref.erased(ref.raw[0], f), ref.erased(ref.raw[1], 0.0))
     gap, fades = ref.fit_box(got, ("weave", 0, 1))
     assert gap == 0.0
     assert fades == pytest.approx((float(f), 0.0))
-    low = reference.Reference("kfm_vfr", rec, truth, SMALL, planes,
-                              dtype=torch.bfloat16)
-    low_got = reference.weave(low.erased(ref.raw[0], 1.0),
-                              low.erased(ref.raw[1], 1.0))
+    low = KFM.reference(config, rec, truth, SMALL, planes,
+                        dtype=torch.bfloat16)
+    low_got = KFM.weave(low.erased(ref.raw[0], 1.0),
+                        low.erased(ref.raw[1], 1.0))
     assert ref.fit_box(low_got, ("weave", 0, 1))[0] > 0.05
 
 

@@ -21,7 +21,7 @@ QUEUE = dict(name="kfm_vfr.queue2", config="isdb-mpeg2-kfm_vfr",
              traffic="cm_logo_queue2", chips=1,
              why="cm_logo recordings through EncodeServer, num_parallel 2")
 OVERLAP = dict(name="server.overlap_share", unit="%", better="higher",
-               source="program_span", layer="server", moves="transcode_fps",
+               source="program_span", layer="server", moves="device_memory_gb",
                workloads=["kfm_vfr.queue2"])
 BENCH = load_json(REPO_DIR / "BENCHMARK.json")
 BENCH = dict(BENCH, workloads=BENCH["workloads"] + [QUEUE],
@@ -81,8 +81,8 @@ def test_cell_rehearsal_is_correct(name):
 
 def test_end_to_end_metrics_of_a_run():
     out = rehearse(load_cell("kfm_vfr.nologo", BENCH), trace=False)
-    assert set(out["metrics"]) == {"transcode_fps", "setup_s"}
-    assert out["metrics"]["transcode_fps"]["value"] > 0
+    assert set(out["metrics"]) == {"setup_s", "device_memory_gb"}
+    assert out["metrics"]["setup_s"]["value"] > 0
     assert out["device"]["count"] == 1
 
 
@@ -90,7 +90,7 @@ def test_cell_added_from_data_alone(tmp_path):
     """A new traffic mix, cell file and per-layer metric as files, and
     their entries: nothing of the harness changes."""
     d = tmp_path / "bench"
-    for sub in ("cells", "traffic", "metrics"):
+    for sub in ("cells", "traffic", "metrics", "families"):
         shutil.copytree(BENCH_DIR / sub, d / sub)
     mix = load_json(BENCH_DIR / "traffic" / "cm_logo.json")
     mix["parts"][0]["scenes"] = [[150, 0], [150, 1]]
@@ -109,7 +109,7 @@ def test_cell_added_from_data_alone(tmp_path):
         traffic="cm_logo_late", chips=1, why="the CM break later"))
     bench["per_layer"].append(dict(
         name="stage.split_share", unit="%", better="lower",
-        source="program_span", layer="stages", moves="transcode_fps",
+        source="program_span", layer="stages", moves="device_memory_gb",
         workloads=["kfm_vfr.cm_logo_late"]))
     cell = load_cell("kfm_vfr.cm_logo_late", bench, bench_dir=d)
     out = rehearse(cell, trace=True)
