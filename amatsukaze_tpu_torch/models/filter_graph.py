@@ -32,12 +32,22 @@ launch per field parity) only when nothing but the final rounding follows.
 On the mesh path yadif never reaches the kernel before a chain or a resize,
 in the JAX package too: the sharded float yadif feeds them, so there a
 yadif + chain output differs from the single-device one.
+
+The post chain and the resize are timed per stage, batch and plane
+(utils/perf.StageTimer: CUDA events on the card, read once per output
+pass), and `record_post_counters` adds the sums to the recording's trace:
+`post.deblock_s`, `post.nr_s`, `post.deband_s`, `post.edge_s`,
+`post.resize_s`, `post.frames` (output frames through the chain or the
+resize) and `post.deblock_skipped_frames` (frames a deblocking chain ran
+without QP maps; the graph warns once when there are any). A graph with
+neither a chain nor a resize records none of them.
 """
 
 from __future__ import annotations
 
 import bisect
 import copy
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -52,6 +62,7 @@ from ..parallel.ordered import ordered_parallel
 from ..types import VideoFormat
 from ..utils.batching import batched
 from ..utils.device import resolve_device, to_device, to_host
+from ..utils.perf import StageTimer
 from .kfm import CycleMode, KFMDecider, VFRPlan, build_vfr_plan, plan_is_cfr
 from .vfr import EncoderZone, infer_vfr_timing_fps
 
@@ -148,6 +159,12 @@ class FilterGraph:
         # set_mesh: the device paths sharded over a parallel.mesh.Mesh
         self.mesh = None
         self._mesh_backend = None
+        # the post chain's and the resize's stage timings and frame counts
+        # (record_post_counters)
+        self._post_timer: StageTimer | None = None
+        self._post_frames = 0
+        self._deblock_skipped = 0
+        self._deblock_warned = False
 
     def set_mesh(self, mesh_or_ndevices) -> None:
         """Shard the filter pass over a mesh (the JAX package's `--devices
@@ -414,20 +431,31 @@ class FilterGraph:
         return to_device(self._host_frames(frames), self.device,
                          self.ctx.trace)
 
-    def _apply_post(self, out: torch.Tensor, src_indices,
-                    plane_h: int) -> torch.Tensor:
+    def _timer(self) -> StageTimer:
+        """The stage timer of the post chain and the resize."""
+        if self._post_timer is None:
+            self._post_timer = StageTimer(self.device)
+        return self._post_timer
+
+    def _apply_post(self, out: torch.Tensor, src_indices, plane_h: int,
+                    plane: int, n_valid: int, timer) -> torch.Tensor:
         """The post chain over float frames [N, H, W], with the QP maps of
-        the output frames' source indices when the chain deblocks."""
-        if getattr(self.post_chain, "wants_qp", False) \
-                and self.qp_source is not None:
-            qp = self.qp_source.maps_for(src_indices)
-            if qp is not None:
-                mbh = qp.shape[1]
-                scale = 2 if plane_h > mbh * 12 else 1  # luma vs 4:2:0 chroma
-                return self.post_chain(
-                    out, qp=to_device(qp, out.device, self.ctx.trace),
-                    qp_block_scale=scale, src_bits=self.src_bits)
-        return self.post_chain(out, src_bits=self.src_bits)
+        the output frames' source indices when the chain deblocks. Frames
+        that a deblocking chain gets no maps for are counted (on the luma
+        plane: n_valid of them)."""
+        qp = None
+        if getattr(self.post_chain, "wants_qp", False):
+            if self.qp_source is not None:
+                qp = self.qp_source.maps_for(src_indices)
+            if qp is None and plane == 0:
+                self._deblock_skipped += n_valid
+        if qp is not None:
+            mbh = qp.shape[1]
+            scale = 2 if plane_h > mbh * 12 else 1  # luma vs 4:2:0 chroma
+            return self.post_chain(
+                out, qp=to_device(qp, out.device, self.ctx.trace),
+                qp_block_scale=scale, src_bits=self.src_bits, timer=timer)
+        return self.post_chain(out, src_bits=self.src_bits, timer=timer)
 
     def _apply_resize(self, out: torch.Tensor, plane: int) -> torch.Tensor:
         """Lanczos3 resize to the configured size (chroma: half)."""
@@ -442,13 +470,43 @@ class FilterGraph:
                 plane: int, n_valid: int) -> DeferredBatch:
         """Post chain, resize, then the rounding to the source depth:
         uint8, or uint16 (as int16) above 8 bits."""
+        timer = self._timer()
         if self.post_chain is not None:
-            out = self._apply_post(out, src_indices, plane_h)
-        out = self._apply_resize(out, plane)
+            out = self._apply_post(out, src_indices, plane_h, plane, n_valid,
+                                   timer)
+        if self.resize is not None:
+            with timer("resize"):
+                out = self._apply_resize(out, plane)
+        if plane == 0 and (self.post_chain is not None
+                           or self.resize is not None):
+            self._post_frames += n_valid
         mx = (1 << self.src_bits) - 1
         dt = torch.int16 if self.src_bits > 8 else torch.uint8
         q = torch.floor(out + 0.5).clamp(0, mx).to(dt)
         return DeferredBatch(q, n_valid)
+
+    def record_post_counters(self) -> None:
+        """Add the post chain's and the resize's counters of the output
+        pass that has just fetched its last batch to the recording's trace
+        (the module's docstring), and warn once per graph if frames went
+        through a deblocking chain without QP maps. Nothing without a chain
+        or a resize."""
+        if self.post_chain is None and self.resize is None:
+            return
+        trace = self.ctx.trace
+        if self._post_timer is not None:
+            for name, secs in self._post_timer.collect().items():
+                trace.add(f"post.{name}_s", secs)
+        trace.add("post.frames", self._post_frames)
+        if getattr(self.post_chain, "wants_qp", False):
+            trace.add("post.deblock_skipped_frames", self._deblock_skipped)
+            if self._deblock_skipped and not self._deblock_warned:
+                self.ctx.warn("deblock: %d of %d output frames had no QP "
+                              "maps; the post chain ran without deblock on "
+                              "them", self._deblock_skipped,
+                              self._post_frames)
+                self._deblock_warned = True
+        self._post_frames = self._deblock_skipped = 0
 
     def run_kfm_batch(self, frames: np.ndarray, prev_frame,
                       start_index: int, plane: int = 0, final: bool = False,
@@ -581,22 +639,26 @@ class FilterGraph:
                                          device=self.device), 0)
 
     def run_pass3(self, frames: np.ndarray, prev_frame, next_frame,
-                  start_index: int = 0, plane: int = 0) -> DeferredBatch:
+                  start_index: int = 0, plane: int = 0,
+                  n_real: int | None = None) -> DeferredBatch:
         """Filter one batch [B, H, W] -> its output frames (one per source
         frame; two, in field order, for yadif60 and qtgmc). prev/next_frame
         provide the temporal halo (None at the sequence ends); start_index
-        is the batch's first source index (the QP maps' alignment)."""
+        is the batch's first source index (the QP maps' alignment). n_real <
+        len(frames) marks the trailing rows as padding: the batch's length
+        (and the post counters) count only the real frames' outputs."""
         idx = list(range(start_index, start_index + len(frames)))
         after = self.post_chain is not None or self.resize is not None
+        real = len(frames) if n_real is None else n_real
         if self._mesh_backend is not None:
             return self._run_pass3_mesh(frames, prev_frame, next_frame, idx,
-                                        plane, after)
+                                        plane, after, real)
         arr = self._upload(frames)
         if self.mode == self.MODE_NONE:
             if not after:
-                return DeferredBatch(arr, len(arr))
+                return DeferredBatch(arr, real)
             return self._finish(arr.float(), idx, frames.shape[1], plane,
-                                len(arr))
+                                real)
         first = arr[:1] if prev_frame is None \
             else self._upload(prev_frame[None])
         last = arr[-1:] if next_frame is None \
@@ -613,10 +675,11 @@ class FilterGraph:
                 bottom = fused_filter.yadif_fieldmatch(
                     ext, parity_top=False)[0][1:-1]
                 out = torch.stack([out, bottom], dim=1).flatten(0, 1)
+            n_out = real * (len(out) // len(arr))
             if not after:
-                return DeferredBatch(out, len(out))
+                return DeferredBatch(out, n_out)
             return self._finish(out.float(), idx, frames.shape[1], plane,
-                                len(out))
+                                n_out)
         cur = arr.float()
         prev = torch.cat([first.float(), cur[:-1]])
         nxt = torch.cat([cur[1:], last.float()])
@@ -629,10 +692,11 @@ class FilterGraph:
                  deint_ops.yadif_deinterlace(prev, cur, nxt, False)],
                 dim=1).flatten(0, 1)
         idx = [i for i in idx for _ in range(2)]  # one QP map per field pair
-        return self._finish(out, idx, frames.shape[1], plane, len(out))
+        return self._finish(out, idx, frames.shape[1], plane, 2 * real)
 
     def _run_pass3_mesh(self, frames: np.ndarray, prev_frame, next_frame,
-                        idx: list, plane: int, after: bool) -> DeferredBatch:
+                        idx: list, plane: int, after: bool,
+                        real: int) -> DeferredBatch:
         """run_pass3 over the mesh (filter_graph.py:862-880 of the JAX
         package): the sharded deinterlace, then the chain, the resize and
         the rounding over the gathered batch. yadif and yadif60 take K1 when
@@ -642,18 +706,23 @@ class FilterGraph:
         if self.mode == self.MODE_NONE:
             out = mb.put_batch(host)
             if not after:
-                return DeferredBatch(out, len(out))
+                return DeferredBatch(out, real)
             return self._finish(out.float(), idx, frames.shape[1], plane,
-                                len(out))
+                                real)
         out = mb.deint(self.mode, host,
                        *(None if f is None else self._host_frames(f[None])[0]
                          for f in (prev_frame, next_frame)),
                        rounded=not after)
+        n_out = real * (len(out) // len(frames))
         if out.dtype == torch.uint8:
-            return DeferredBatch(out, len(out))
+            return DeferredBatch(out, n_out)
         if self.mode in self.DOUBLE_RATE:
             idx = [i for i in idx for _ in range(2)]
-        return self._finish(out, idx, frames.shape[1], plane, len(out))
+        return self._finish(out, idx, frames.shape[1], plane, n_out)
+
+
+def _untimed(name: str):
+    return nullcontext()
 
 
 def normalize_u8(arr: np.ndarray) -> np.ndarray:
@@ -678,11 +747,13 @@ def build_post_chain(spec: str):
     KEdgeLevel, Server/Misc.cs:1403-1441), or None for no tokens. Unknown
     tokens raise ValueError.
 
-    chain(frames, qp=None, qp_block_scale=2, src_bits=8) maps float
-    [B, H, W] frames in the source domain to the same: deblock runs first
-    in the 8-bit domain with per-macroblock QP maps [B, mb_h, mb_w] (8-bit
-    sources only), the rest in the 14-bit domain. deband draws from seed 0
-    with the index of each frame within the batch."""
+    chain(frames, qp=None, qp_block_scale=2, src_bits=8, timer=None) maps
+    float [B, H, W] frames in the source domain to the same: deblock runs
+    first in the 8-bit domain with per-macroblock QP maps [B, mb_h, mb_w]
+    (8-bit sources only), the rest in the 14-bit domain. deband draws from
+    seed 0 with the index of each frame within the batch. timer(name), where
+    given, is a context manager around each filter's work (a
+    utils/perf.StageTimer); the names are the tokens."""
     tokens = {t.strip() for t in (spec or "").split(",") if t.strip()}
     if not tokens:
         return None
@@ -690,26 +761,32 @@ def build_post_chain(spec: str):
     if unknown:
         raise ValueError(f"unknown post-filter tokens: {sorted(unknown)}")
 
-    def chain(frames, qp=None, qp_block_scale=2, src_bits=8):
+    def chain(frames, qp=None, qp_block_scale=2, src_bits=8, timer=None):
+        t = timer or _untimed
         x = frames
         if "deblock" in tokens and qp is not None and src_bits == 8:
-            _, h, w = x.shape
-            hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
-            if (hp, wp) != (h, w):
-                xp = F.pad(x[:, None], (0, wp - w, 0, hp - h),
-                           mode="replicate")[:, 0]
-                x = denoise.deblock_qp(xp, qp, qp_block_scale=qp_block_scale
-                                       )[:, :h, :w]
-            else:
-                x = denoise.deblock_qp(x, qp, qp_block_scale=qp_block_scale)
+            with t("deblock"):
+                _, h, w = x.shape
+                hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+                if (hp, wp) != (h, w):
+                    xp = F.pad(x[:, None], (0, wp - w, 0, hp - h),
+                               mode="replicate")[:, 0]
+                    x = denoise.deblock_qp(
+                        xp, qp, qp_block_scale=qp_block_scale)[:, :h, :w]
+                else:
+                    x = denoise.deblock_qp(x, qp,
+                                           qp_block_scale=qp_block_scale)
         scale = float(1 << (14 - src_bits))  # ConvertBits(14) at depth
         x = x.to(torch.float32) * scale
         if "nr" in tokens:
-            x = denoise.temporal_nr(x)
+            with t("nr"):
+                x = denoise.temporal_nr(x)
         if "deband" in tokens:
-            x = denoise.deband(x, 0)
+            with t("deband"):
+                x = denoise.deband(x, 0)
         if "edge" in tokens:
-            x = denoise.edge_level(x)
+            with t("edge"):
+                x = denoise.edge_level(x)
         return x * (1.0 / scale)  # back to the source domain
 
     chain.wants_qp = "deblock" in tokens

@@ -425,7 +425,8 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
     on for the QP maps; the last chunk is the KFM modes' `final` one. A
     chunk may give any number of output frames, none included (svp emits
     5/2 frames per film frame, and its last call may hold only the frozen
-    tail)."""
+    tail). Once the last batch is fetched, the graph's post counters go to
+    the trace (FilterGraph.record_post_counters)."""
     buf: list = []
     prev_planes = None  # last source frame of the previous batch
     start = 0
@@ -453,12 +454,10 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
                                              final=next_planes is None,
                                              n_real=n_real))
                 continue
-            res = fg.run_pass3(
+            # one output per real frame, two for the double-rate modes
+            outs.append(fg.run_pass3(
                 arr, prev, None if next_planes is None else next_planes[p],
-                start_index=start, plane=p)
-            # one output per frame, two for the double-rate modes
-            res.n = n_real * (len(res) // len(arr))
-            outs.append(res)
+                start_index=start, plane=p, n_real=n_real))
         prev_planes = chunk[-1]
         start += len(chunk)
         if pending is not None:
@@ -480,4 +479,5 @@ def pump_filtered(fg: FilterGraph, frames_iter, sink, batch: int) -> int:
     flush(buf, None)
     if pending is not None:
         emit(pending)
+    fg.record_post_counters()
     return emitted

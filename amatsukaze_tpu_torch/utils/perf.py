@@ -20,6 +20,12 @@ per frame inside a phase is summed into an attribute of its span
     with ctx.trace.span("filter.analysis", frames=n):
         ...
     ctx.trace.add("d2h.bytes", arr.nbytes)
+
+A StageTimer sums the device time of named stages of work that the host
+only enqueues (the post chain per batch and plane): CUDA event pairs on a
+CUDA device, read once when the work is done, so that timing adds no
+synchronisation; the host clock on the CPU, where the work is done when
+the call returns.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import threading
 import time
 import uuid
 from collections import deque
+from contextlib import contextmanager
 
 CLOCK = "perf_counter"
 ROOT = "recording"
@@ -210,6 +217,56 @@ class Trace:
         with self._lock:
             counters = dict(self.counters)
         return dict(clock=CLOCK, spans=spans, counters=counters)
+
+
+class StageTimer:
+    """Seconds of named stages of work on one device, summed per name.
+
+        timer = StageTimer(device)
+        with timer("deband"):
+            x = deband(x)
+        ...  # once every stage's output has been fetched
+        seconds = timer.collect()  # {"deband": ...}
+
+    On a CUDA device each stage records an event before and after it on
+    the device's current stream and collect() reads their elapsed times
+    (the events are done by then, so it does not wait); elsewhere a stage
+    is its host time."""
+
+    def __init__(self, device):
+        self.cuda = getattr(device, "type", str(device)) == "cuda"
+        self.device = device
+        self._pending: list = []  # (name, start event, end event)
+        self._seconds: dict[str, float] = {}
+
+    @contextmanager
+    def __call__(self, name: str):
+        if self.cuda:
+            import torch
+
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            yield
+            end.record(stream)
+            self._pending.append((name, start, end))
+            return
+        t0 = time.perf_counter()
+        yield
+        self._add(name, time.perf_counter() - t0)
+
+    def _add(self, name: str, seconds: float) -> None:
+        self._seconds[name] = self._seconds.get(name, 0.0) + seconds
+
+    def collect(self) -> dict:
+        """The seconds of each stage timed since the last collect()."""
+        for name, start, end in self._pending:
+            end.synchronize()
+            self._add(name, start.elapsed_time(end) / 1e3)
+        self._pending = []
+        out, self._seconds = self._seconds, {}
+        return out
 
 
 class FpsPrinter:
